@@ -1,93 +1,85 @@
-"""Benchmark runner: the north-star workload from BASELINE.json.
+"""North-star benchmark: `path_tracing_cornel.scn` at 512x512, 2048 spp,
+depth 20, on one GPU.
 
-Renders `path_tracing_cornel.scn` at 512x512, 2048 spp, depth 20 on the
-available accelerator (the Pallas megakernel on TPU, the XLA wavefront
-elsewhere) and prints ONE JSON line:
+Renders with the engine `renderers.engine.choose_engine` picks for the
+scene, warm (compile first, then the median of 3 timed renders, each ending
+in `block_until_ready`), and prints ONE JSON line naming the device:
 
-    {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}
+    {"metric": ..., "value": seconds, "unit": "seconds", "device": {...}}
 
-`vs_baseline` is the speedup vs the 10-second target wall-clock
-(BASELINE.md: "< 10 s on one v5e"), i.e. 10 / measured_seconds; > 1 beats
-the target.  Override the workload with env vars NR_BENCH_{SPP,SIZE,DEPTH}.
+Without a GPU it exits non-zero and prints no result.
+
+    python bench.py
 """
 import json
-import os
 import pathlib
+import statistics
 import sys
 import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 
-CORNELL = "/root/reference/resource/path_tracing_cornel.scn"
-TARGET_SECONDS = 10.0
+SIZE, SPP, DEPTH = 512, 2048, 20
 
 
 def main() -> int:
     import jax
+    if jax.default_backend() != "gpu":
+        print(f"bench.py needs a GPU; JAX found {jax.default_backend()!r}",
+              file=sys.stderr)
+        return 2
     import numpy as np
     import nrenderer_tpu
     nrenderer_tpu.enable_compilation_cache()
-    from nrenderer_tpu.utils.device_warm import warm_device_async
-    warm_device_async()  # claim the TPU pool chip during prep/compiles
-    from nrenderer_tpu import load_scn, build_scene_arrays
+    from nrenderer_tpu import build_scene_arrays, load_scn
     from nrenderer_tpu.ops.camera import make_camera
     from nrenderer_tpu.ops.intersect import make_static_scene
+    from nrenderer_tpu.renderers.engine import MEGAKERNEL, choose_engine
+    from nrenderer_tpu.resources import scene_path
 
-    size = int(os.environ.get("NR_BENCH_SIZE", "512"))
-    spp = int(os.environ.get("NR_BENCH_SPP", "2048"))
-    depth = int(os.environ.get("NR_BENCH_DEPTH", "20"))
-
-    scene = load_scn(CORNELL)
+    scene = load_scn(scene_path("path_tracing_cornel.scn"))
     arr = build_scene_arrays(scene)
     ss = make_static_scene(arr)
     cam = make_camera(scene.camera)
+    engine = choose_engine(ss, mesh=False, has_lens=False, textures=None)
+    if engine == MEGAKERNEL:
+        from nrenderer_tpu.ops.pt_pallas import render_simple_pt_pallas
 
-    backend = jax.default_backend()
-    if backend == "cpu":
-        # CPU smoke mode: tiny workload so the bench is still runnable
-        size, spp, depth = min(size, 64), min(spp, 8), min(depth, 4)
-
-    use_pallas = backend != "cpu"
-    if use_pallas:
-        try:
-            from nrenderer_tpu.ops.pt_pallas import render_simple_pt_pallas
-            # warm-up / compile at the FULL shape (spp/depth/size are baked
-            # into the kernel; seed is a runtime arg so the compiled fn is
-            # reused) — the measurement below is pure steady-state execute
-            np.asarray(render_simple_pt_pallas(ss, cam, size, size,
-                                               spp, depth, seed=0))
-            wall = float("inf")
-            for rep in range(2):  # best-of-2 irons out relay jitter
-                t0 = time.perf_counter()
-                img = np.asarray(render_simple_pt_pallas(
-                    ss, cam, size, size, spp, depth, seed=1 + rep))
-                wall = min(wall, time.perf_counter() - t0)
-        except Exception as exc:  # fall back to the XLA engine
-            print(f"pallas engine unavailable ({exc!r}); using XLA",
-                  file=sys.stderr, flush=True)
-            use_pallas = False
-    if not use_pallas:
-        from nrenderer_tpu.renderers.simple_pt import (
-            build_render_fn, pick_chunk)
+        def render(seed):
+            return render_simple_pt_pallas(ss, cam, SIZE, SIZE, SPP, DEPTH,
+                                           seed=seed)
+    else:
         from nrenderer_tpu.ops.sampling import make_base_key
-        chunk = pick_chunk(size, size, spp)
-        fn = build_render_fn(ss, size, size, spp, depth, chunk, False, False)
-        np.asarray(fn(cam, arr.env_map, make_base_key(0)))
-        t0 = time.perf_counter()
-        img = np.asarray(fn(cam, arr.env_map, make_base_key(1)))
-        wall = time.perf_counter() - t0
+        from nrenderer_tpu.renderers.simple_pt import (build_render_fn,
+                                                       pick_chunk)
+        fn = build_render_fn(ss, SIZE, SIZE, SPP, DEPTH,
+                             pick_chunk(SIZE, SIZE, SPP), False, False)
 
-    assert img.shape == (size, size, 3) and np.isfinite(img).all()
-    spp_per_s = spp / wall
-    mrays_per_s = size * size * spp * depth / wall / 1e6
+        def render(seed):
+            return fn(cam, arr.env_map, make_base_key(seed))
+
+    t0 = time.perf_counter()
+    render(0).block_until_ready()
+    compile_s = time.perf_counter() - t0
+    walls = []
+    for rep in range(3):
+        t0 = time.perf_counter()
+        img = render(1 + rep).block_until_ready()
+        walls.append(time.perf_counter() - t0)
+    img = np.asarray(img)
+    assert img.shape == (SIZE, SIZE, 3) and np.isfinite(img).all()
+    wall = statistics.median(walls)
+    dev = jax.devices()[0]
     result = {
-        "metric": (f"wall-clock path_tracing_cornel.scn {size}x{size} "
-                   f"{spp}spp depth={depth} ({backend}); "
-                   f"{spp_per_s:.0f} spp/s, {mrays_per_s:.0f} Mbounce-rays/s"),
-        "value": round(wall, 3),
+        "metric": (f"wall-clock path_tracing_cornel.scn {SIZE}x{SIZE} "
+                   f"{SPP}spp depth={DEPTH} [{engine}]; "
+                   f"{SPP / wall:.1f} spp/s, "
+                   f"{SIZE * SIZE * SPP * DEPTH / wall / 1e6:.1f} "
+                   f"Mbounce-rays/s; set-up {compile_s:.2f}s"),
+        "value": wall,
         "unit": "seconds",
-        "vs_baseline": round(TARGET_SECONDS / wall, 3) if backend != "cpu"
-        else 0.0,
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
     }
     print(json.dumps(result))
     return 0

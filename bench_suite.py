@@ -1,386 +1,110 @@
-"""Full benchmark suite over the BASELINE.json configs.
+"""Benchmark suite: every stock workload through the renderer registry.
 
-Runs every headline workload on the available accelerator and writes a
-markdown table to BENCH.md (and prints it).  `bench.py` remains the driver's
-single-line north-star benchmark; this is the human-facing suite.
+Each row renders once to compile (set-up) and once warm, through the same
+`ComponentManager` path the CLI uses, so every path tracer runs the engine
+`renderers.engine.choose_engine` picks.  Prints a markdown table headed by
+the device.  Without a GPU it exits non-zero and prints no result.
 
-    python bench_suite.py [--quick]
+    python bench_suite.py
 """
-import json
 import pathlib
 import sys
 import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 
-import numpy as np
 
-RES = "/root/reference/resource"
-
-# ---------------------------------------------------------------------------
-# Roofline / utilization accounting (VERDICT r4 #7).
-#
-# v5e-1 peaks (public spec + scaling-book hardware model):
-#   HBM   819 GB/s
-#   VPU   ~3.9 TFLOP/s f32 (8 sublanes x 128 lanes x 4 ALUs x ~950 MHz;
-#         an FMA counts as 2 FLOPs)
-#   MXU   197 TFLOP/s bf16 — listed for context; every shipped kernel is
-#         f32 VPU math (intersection tests, bounce physics), so VPU peak
-#         is the relevant compute roof.
-#
-# Per workload we model the USEFUL work (speed-of-light: the FLOPs an
-# ideal renderer must execute and the HBM bytes it must move — masked
-# lanes, saturated block unions, and re-walked tiles are deliberately
-# NOT counted) and print achieved-%-of-peak for both roofs.  Low % of
-# the binding roof therefore means headroom (waste or idleness), and the
-# larger of the two classifies the workload compute- vs bandwidth-bound.
-# FLOP costs per primitive test: sphere 25, plane 30 (inverse-matrix
-# precomputed), Moller-Trumbore triangle 60; bounce physics (ONB +
-# cosine sample + RR + film) ~250; hash RNG ~30/uniform.  All modeled,
-# good to ~2x — the point is chip-occupancy accounting, not flop court.
-# ---------------------------------------------------------------------------
-V5E_HBM = 819e9
-V5E_VPU = 3.9e12
+def _cornel(name):
+    from nrenderer_tpu import load_scn
+    from nrenderer_tpu.resources import scene_path
+    return load_scn(scene_path(name))
 
 
-def prim_flops(ss, n_tri=None):
-    """Modeled FLOPs to test one ray against every unrolled primitive."""
-    if n_tri is None:
-        n_tri = len(ss.tri)
-    return len(ss.sph) * 25 + len(ss.pln) * 30 + n_tri * 60
-
-
-def util(dt, flops=0.0, hbm_bytes=0.0):
-    fp = flops / dt / V5E_VPU
-    bp = hbm_bytes / dt / V5E_HBM
-    kind = "compute" if fp >= bp else "bandwidth"
-    return (f"{fp * 100:.1f}% VPU, {bp * 100:.1f}% HBM ({kind}-bound)")
-
-
-def timed(fn, *args, warmup=True, **kw):
-    if warmup:
-        np.asarray(fn(*args, **kw))
-    t0 = time.perf_counter()
-    out = np.asarray(fn(*args, **kw))
-    return time.perf_counter() - t0, out
-
-
-def main() -> int:
-    quick = "--quick" in sys.argv
-    import jax
-    from nrenderer_tpu import load_scn, load_obj, build_scene_arrays
-    from nrenderer_tpu.ops.camera import make_camera
-    from nrenderer_tpu.ops.intersect import make_static_scene
-    from nrenderer_tpu.ops.pt_pallas import (
-        render_bsdf_pt_pallas, render_simple_pt_pallas,
-    )
-    import nrenderer_tpu
-    nrenderer_tpu.enable_compilation_cache()
-    nrenderer_tpu._register_builtin_renderers()
-    from nrenderer_tpu.utils.device_warm import warm_device_async
-    warm_device_async()  # claim the TPU pool chip during prep/compiles
-
-    backend = jax.default_backend()
-    size = 128 if quick or backend == "cpu" else 512
-    spp = 64 if quick or backend == "cpu" else 2048
-    rows = []
-    # roofline strings are v5e-relative; meaningless on the CPU backend
-    uf = util if backend != "cpu" else (lambda *a, **k: "-")
-
-    def setup(name):
-        scene = load_scn(f"{RES}/{name}")
-        arr = build_scene_arrays(scene)
-        return scene, arr, make_static_scene(arr), make_camera(scene.camera)
-
-    # 1. RayCast (config 1)
-    from nrenderer_tpu.renderers.raycast import render_raycast
-    scene, arr, ss, cam = setup("ray_cast_cornel.scn")
-    dt, img = timed(render_raycast, arr, cam, size, size)
-    # primary + one shadow ray per pixel, Phong shade
-    rays = size * size
-    rows.append(("RayCast cornel", f"{size}x{size}, 1 spp", dt,
-                 f"{size * size / dt / 1e6:.0f} Mray/s",
-                 uf(dt, flops=rays * (2 * prim_flops(ss) + 100),
-                    hbm_bytes=rays * 16)))
-
-    # 2. SimplePathTracer north star (config 2)
-    scene, arr, ss, cam = setup("path_tracing_cornel.scn")
-    if backend == "cpu":
-        from nrenderer_tpu.renderers.simple_pt import (
-            get_render_fn, pick_chunk)
-        from nrenderer_tpu.ops.sampling import make_base_key
-        chunk = pick_chunk(size, size, spp)
-        fn = get_render_fn(ss, size, size, spp, 8, chunk, False, False)
-        dt, img = timed(lambda: fn(cam, arr.env_map, make_base_key(1)))
-        depth = 8
-    else:
-        depth = 20
-        dt, img = timed(render_simple_pt_pallas, ss, cam, size, size, spp,
-                        depth, seed=1)
-    br = size * size * spp * depth  # nominal bounce-rays
-    pf_cornell = prim_flops(ss)
-    rows.append(("PT cornel (north star)", f"{size}x{size}, {spp} spp, "
-                 f"depth {depth}", dt, f"{spp / dt:.0f} spp/s",
-                 uf(dt, flops=br * (pf_cornell + len(ss.al) * 30 + 400),
-                    hbm_bytes=size * size * 12)))
-
-    # 3. Glass/conductor BSDFs (config 3)
-    scene, arr, ss, cam = setup("pt_glass.scn")
-    if backend == "cpu":
-        from nrenderer_tpu.renderers.acc_pt import get_render_fn as acc_fn
-        from nrenderer_tpu.renderers.simple_pt import pick_chunk
-        from nrenderer_tpu.ops.sampling import make_base_key
-        chunk = pick_chunk(size, size, spp)
-        fn = acc_fn(ss, size, size, spp, 8, chunk, False, False, False)
-        dt, img = timed(lambda: fn(cam, arr.env_map, make_base_key(1), None))
-    else:
-        dt, img = timed(render_bsdf_pt_pallas, ss, cam, size, size, spp, 20,
-                        seed=1)
-    glass_depth = 8 if backend == "cpu" else 20
-    br = size * size * spp * glass_depth
-    rows.append(("AccPT pt_glass (BSDFs)", f"{size}x{size}, {spp} spp", dt,
-                 f"{spp / dt:.0f} spp/s",
-                 uf(dt, flops=br * (prim_flops(ss) + len(ss.al) * 30 + 800),
-                    hbm_bytes=size * size * 12)))
-
-    # 3b. conductors.scn — the other half of BASELINE Config 3.  The stock
-    # .scn ships ONLY the 14 metal materials (no geometry, no light — the
-    # reference UI adds spheres by hand), so the bench renders the
-    # programmatic showcase from examples/conductors_grid.py: Cornell
-    # shell + area light + one sphere per metal (complex-Fresnel
-    # microfacet, type 3).
+def _conductors():
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent
                            / "examples"))
-    from conductors_grid import build_scene as build_conductors
-    scene = build_conductors()
-    arr = build_scene_arrays(scene)
-    ss = make_static_scene(arr)
-    cam = make_camera(scene.camera)
-    cond_depth = 8 if backend == "cpu" else 20
-    if backend == "cpu":
-        from nrenderer_tpu.renderers.acc_pt import get_render_fn as acc_fn
-        from nrenderer_tpu.renderers.simple_pt import pick_chunk
-        from nrenderer_tpu.ops.sampling import make_base_key
-        chunk = pick_chunk(size, size, spp)
-        fn = acc_fn(ss, size, size, spp, cond_depth, chunk, False, False,
-                    False)
-        dt, img = timed(lambda: fn(cam, arr.env_map, make_base_key(1), None,
-                                   None))
-    else:
-        dt, img = timed(render_bsdf_pt_pallas, ss, cam, size, size, spp,
-                        cond_depth, seed=1)
-    br = size * size * spp * cond_depth
-    rows.append(("AccPT conductors (Fresnel)",
-                 f"{size}x{size}, {spp} spp, depth {cond_depth}",
-                 dt, f"{spp / dt:.0f} spp/s",
-                 uf(dt, flops=br * (prim_flops(ss) + len(ss.al) * 30 + 800),
-                    hbm_bytes=size * size * 12)))
+    from conductors_grid import build_scene
+    return build_scene()
 
-    # 4. Bunny mesh (config 4).  On TPU this is the REFERENCE framing at
-    # 500x500/depth 20 with spp scaled 4x down (64) — the mesh sweep +
-    # compaction pipe dominates wall time at this shape, so a 2x pipe
-    # regression moves the row ~2x (the old 256^2/8spp row was fixed-cost
-    # dominated and hid regressions — VERDICT r3 weak #5).
-    from nrenderer_tpu.renderers.acc_pt import AccPathTracerRenderer
-    scene = load_scn(f"{RES}/path_tracing_cornel.scn")
-    load_obj(f"{RES}/obj/bunny_5k_faces.obj", scene, material=0)
+
+def _env():
+    from nrenderer_tpu.resources import attach_env_map
+    return attach_env_map(_cornel("env_map_spheres.scn"))
+
+
+def _bunny():
+    from nrenderer_tpu import load_obj
+    from nrenderer_tpu.resources import bunny_path
+    scene = _cornel("path_tracing_cornel.scn")
+    load_obj(bunny_path("5k"), scene, material=0)
     m = scene.models[-1]
     m.scale = (600.0,) * 3
     m.translation = (40.0, -305.0, 920.0)
+    return scene
+
+
+# (row name, scene factory, renderer, size, spp, depth)
+WORKLOADS = [
+    ("RayCast cornel", lambda: _cornel("ray_cast_cornel.scn"), "RayCast",
+     512, 1, 1),
+    ("PT cornel (north star)", lambda: _cornel("path_tracing_cornel.scn"),
+     "SimplePathTracer", 512, 2048, 20),
+    ("AccPT pt_glass", lambda: _cornel("pt_glass.scn"), "AccPathTracer",
+     512, 2048, 20),
+    ("AccPT conductors", _conductors, "AccPathTracer", 512, 2048, 20),
+    ("AccPT env-map spheres", _env, "AccPathTracer", 512, 1024, 8),
+    ("AccPT bunny-5k", _bunny, "AccPathTracer", 500, 256, 20),
+]
+
+
+def _render(make_scene, renderer, size, spp, depth):
+    from nrenderer_tpu.server.manager import ComponentManager
+    scene = make_scene()
     ro = scene.render_option
-    if backend == "cpu":
-        ro.width = ro.height = min(size, 256)
-        ro.samples_per_pixel = 2
-        ro.depth = 8
-    else:
-        ro.width = ro.height = 500
-        ro.samples_per_pixel = 64
-        ro.depth = 20
-    r = AccPathTracerRenderer(seed=0)
-    r.render(scene)  # compile
+    ro.width = ro.height = size
+    ro.samples_per_pixel, ro.depth = spp, depth
+    mgr = ComponentManager()
     t0 = time.perf_counter()
-    AccPathTracerRenderer(seed=1).render(scene)
-    dt = time.perf_counter() - t0
-    # Useful-work model for the mesh path.  Constants measured on the
-    # real bunny chain (tools/perf/aabb_counts.py at 16M rays/depth 20):
-    #   HIT_FRAC   = sum of per-bounce mesh-AABB hits / nominal
-    #                bounce-rays (rays that MUST be swept at all)
-    #   ALIVE_FRAC = mean alive fraction over the chain (dense pass +
-    #                bounce physics run on every alive lane)
-    #   TRI_PER_HIT = triangle tests an ideal per-ray BVH descent would
-    #                do on a hitting ray (~leaf visits of a 5k median
-    #                split) — the sweep's block unions do far more; the
-    #                gap is exactly the headroom this column exposes.
-    HIT_FRAC, ALIVE_FRAC, TRI_PER_HIT = 0.047, 0.55, 48
-    br = ro.width * ro.height * ro.samples_per_pixel * ro.depth
-    arr_b = build_scene_arrays(scene)
-    ss_b = make_static_scene(arr_b)
-    mesh_flops = br * (ALIVE_FRAC * (prim_flops(ss_b, n_tri=0)
-                                     + len(ss_b.al) * 30 + 400)
-                       + HIT_FRAC * TRI_PER_HIT * 60)
-    # essential bytes: pack + unpack of the hit set through HBM, 13
-    # f32 channels each way (ray, t-cap, ids, normals, material)
-    mesh_bytes = br * HIT_FRAC * 13 * 4 * 2
-    rows.append(("AccPT bunny-5k (mesh)", f"{ro.width}x{ro.height}, "
-                 f"{ro.samples_per_pixel} spp, depth {ro.depth}", dt,
-                 f"{ro.samples_per_pixel / dt:.2f} spp/s",
-                 uf(dt, flops=mesh_flops, hbm_bytes=mesh_bytes)))
+    mgr.exec(renderer, scene)
+    result = mgr.wait()
+    if result is None:
+        raise RuntimeError(f"{renderer} failed")
+    return time.perf_counter() - t0
 
-    # 4b. Env-map spheres (config 4's other half) — the reference DECLARES
-    # Ambient::ENVIROMENT_MAP (`Scene.hpp:29-38`) but no shipped renderer
-    # ever samples it, so there is no reference number; the rebuild renders
-    # it on the Pallas fast path (in-kernel binned lookup + exact bounce-0
-    # pass).
-    from nrenderer_tpu.io.image import load_image
-    from nrenderer_tpu.scene.model import AmbientType, Texture
-    scene = load_scn(f"{RES}/env_map_spheres.scn")
-    px = load_image(f"{RES}/textures/wallhaven-8o77d1.jpg")
-    if px is not None:
-        scene.ambient.environment_map = len(scene.textures)
-        scene.textures.append(Texture(name="env", pixels=px))
-        scene.ambient.type = AmbientType.ENVIRONMENT_MAP
-        arr = build_scene_arrays(scene)
-        ss = make_static_scene(arr)
-        cam = make_camera(scene.camera)
-        env_spp = min(spp, 1024)
-        if backend == "cpu":
-            from nrenderer_tpu.renderers.acc_pt import (
-                get_render_fn as acc_fn)
-            from nrenderer_tpu.renderers.simple_pt import pick_chunk
-            from nrenderer_tpu.ops.sampling import make_base_key
-            chunk = pick_chunk(size, size, env_spp)
-            fn = acc_fn(ss, size, size, env_spp, 8, chunk, False, True)
-            dt, img = timed(
-                lambda: fn(cam, arr.env_map, make_base_key(1), None))
-        else:
-            dt, img = timed(render_bsdf_pt_pallas, ss, cam, size, size,
-                            env_spp, 8, seed=1, env_map=arr.env_map)
-        br = size * size * env_spp * 8
-        rows.append(("AccPT env-map spheres", f"{size}x{size}, {env_spp} "
-                     "spp, depth 8", dt,
-                     f"{env_spp / dt:.0f} spp/s (ref: unimplemented)",
-                     uf(dt, flops=br * (prim_flops(ss) + 450),
-                        hbm_bytes=size * size * 12)))
 
-    # 4c. textured vs untextured mesh twins (VERDICT r2 #4 acceptance:
-    # textures must stay on the fast engines, within 1.5x of the twin).
-    # An 8x8-subdivided quad (128 faces) with / without a map_Kd texture.
-    import tempfile
-    from nrenderer_tpu.renderers.acc_pt import AccPathTracerRenderer
-    from nrenderer_tpu.io.image import write_png
-    from nrenderer_tpu.scene.model import AreaLight
-    with tempfile.TemporaryDirectory() as td:
-        import pathlib as _pl
-        tdp = _pl.Path(td)
-        teximg = np.zeros((32, 128, 3), np.float32)
-        teximg[:, :64] = (1.0, 0.2, 0.2)
-        teximg[:, 64:] = (0.2, 1.0, 0.2)
-        write_png(str(tdp / "tex.png"), teximg)
-        (tdp / "g.mtl").write_text(
-            "newmtl m\nKd 1 1 1\nmap_Kd tex.png\n")
-        nsub = 8
-        verts, uvs, faces = [], [], []
-        for j in range(nsub + 1):
-            for i in range(nsub + 1):
-                verts.append((i / nsub * 2 - 1, j / nsub * 2 - 1, 0.0))
-                uvs.append((i / nsub, j / nsub))
-        for j in range(nsub):
-            for i in range(nsub):
-                a = j * (nsub + 1) + i + 1
-                b, c_, d_ = a + 1, a + nsub + 2, a + nsub + 1
-                faces.append((a, b, c_)); faces.append((a, c_, d_))
-        lines = ["mtllib g.mtl"]
-        lines += [f"v {x} {y} {z}" for x, y, z in verts]
-        lines += [f"vt {u} {v}" for u, v in uvs]
-        lines.append("usemtl m")
-        lines += [f"f {a}/{a} {b}/{b} {c}/{c}" for a, b, c in faces]
-        (tdp / "g.obj").write_text("\n".join(lines) + "\n")
-
-        tex_spp = 64 if backend == "cpu" else 512
-        times = {}
-        for label, strip_tex in (("textured", False), ("untextured", True)):
-            s2 = load_obj(str(tdp / "g.obj"))
-            s2.materials[0].type = 0
-            if strip_tex:
-                s2.materials[0].remove_property("diffuseMap")
-            s2.area_light_buffer.append(AreaLight(
-                position=(-2.0, 2.5, 2.0), u=(4.0, 0.0, 0.0),
-                v=(0.0, 0.0, 2.0), radiance=(6.0, 6.0, 6.0)))
-            s2.camera.position = (0.0, 0.0, 4.0)
-            s2.camera.look_at = (0.0, 0.0, 0.0)
-            ro2 = s2.render_option
-            ro2.width = ro2.height = min(size, 256)
-            ro2.samples_per_pixel = tex_spp
-            ro2.depth = 6
-            AccPathTracerRenderer(seed=0).render(s2)  # compile
-            t0 = time.perf_counter()
-            AccPathTracerRenderer(seed=1).render(s2)
-            times[label] = time.perf_counter() - t0
-        ratio = times["textured"] / max(times["untextured"], 1e-9)
-        rows.append(("AccPT textured grid (128 tris)",
-                     f"{min(size, 256)}x{min(size, 256)}, {tex_spp} spp, "
-                     f"depth 6", times["textured"],
-                     f"{ratio:.2f}x untextured twin "
-                     f"({times['untextured']:.2f}s)",
-                     "-"))  # ratio row: the twin IS the roofline
-
-    # 5. MLT (config 5) — warm the block compile, then measure steady state
-    from nrenderer_tpu.renderers.mlt import render_mlt
-    scene = load_scn(f"{RES}/Metropolis.scn")
-    ro = scene.render_option
-    ro.width = ro.height = min(size, 256)
-    ro.depth = 8 if backend == "cpu" else 20
-    chains = 256 if backend == "cpu" else 4096
-    muts = 16 if backend == "cpu" else 1024
-    n_init = 2048 if backend == "cpu" else 10000
-    render_mlt(scene, chains=chains, mutations=min(muts, 128), n_init=n_init,
-               seed=0)  # compile
-    t0 = time.perf_counter()
-    render_mlt(scene, chains=chains, mutations=muts, n_init=n_init, seed=1)
-    dt = time.perf_counter() - t0
-    # MLT useful work per mutation: two L-vertex subpaths traced against
-    # the unrolled scene + recurrence-factorized MIS/combine (~O(L^2)
-    # masked pair terms at ~20 FLOPs) + Kelemen splats (~40 live
-    # contributions x 16B through the film scatter)
-    arr_m = build_scene_arrays(scene)
-    ss_m = make_static_scene(arr_m)
-    L = ro.depth
-    mut = chains * muts
-    mlt_flops = mut * (2 * L * (prim_flops(ss_m) + 300)
-                       + L * L * 20 + 200)
-    rows.append(("MLT Metropolis.scn", f"{ro.width}x{ro.height}, "
-                 f"{chains}x{muts} mutations", dt,
-                 f"{chains * muts / dt / 1e3:.1f} Kmut/s",
-                 uf(dt, flops=mlt_flops, hbm_bytes=mut * 40 * 16)))
-
-    lines = [f"# Benchmarks ({backend})", "",
-             "| Workload | Config | Wall | Rate | Utilization (modeled) |",
+def main() -> int:
+    import jax
+    if jax.default_backend() != "gpu":
+        print(f"bench_suite.py needs a GPU; JAX found "
+              f"{jax.default_backend()!r}", file=sys.stderr)
+        return 2
+    import nrenderer_tpu
+    nrenderer_tpu.enable_compilation_cache()
+    nrenderer_tpu._register_builtin_renderers()
+    dev = jax.devices()[0]
+    lines = [f"# Benchmarks ({dev.platform}, {dev.device_kind}, "
+             f"{len(jax.devices())} device(s))", "",
+             "| Workload | Config | Set-up (s) | Warm (s) | Rate |",
              "|---|---|---|---|---|"]
-    for name, cfg, dt, rate, u in rows:
-        lines.append(f"| {name} | {cfg} | {dt:.2f}s | {rate} | {u} |")
-    lines += ["",
-              "Reference points: BVH bunny-5k 500x500 256spp = 1330s; "
-              "MLT 16M mutations = 19573s (both from the reference's own "
-              "run logs in results/*.png); north-star target < 10s.",
-              "",
-              "Utilization is achieved useful work vs v5e-1 peaks "
-              "(819 GB/s HBM, ~3.9 TFLOP/s f32 VPU; no kernel uses the "
-              "MXU): modeled speed-of-light FLOPs/bytes per workload "
-              "(see bench_suite.py comments, good to ~2x) divided by "
-              "wall time.  Low % of the binding roof = headroom (masked "
-              "lanes, block-union overlap, dispatch gaps), not an idle "
-              "chip claim.  The larger of the two classifies the row "
-              "compute- vs bandwidth-bound."]
-    text = "\n".join(lines) + "\n"
-    print(text)
-    if backend != "cpu" and not quick:
-        # keep the hand-measured reference-scale section across regens
-        marker = "Reference-scale workloads"
-        prev = ""
-        p = pathlib.Path("BENCH.md")
-        if p.exists() and marker in p.read_text():
-            prev = "\n" + p.read_text()[p.read_text().index(marker):]
-        p.write_text(text.rstrip() + "\n" + prev)
+    for name, make_scene, renderer, size, spp, depth in WORKLOADS:
+        cold = _render(make_scene, renderer, size, spp, depth)
+        warm = _render(make_scene, renderer, size, spp, depth)
+        lines.append(f"| {name} | {size}x{size}, {spp} spp, depth {depth} "
+                     f"| {cold - warm:.3f} | {warm:.3f} "
+                     f"| {spp / warm:.1f} spp/s |")
+
+    from nrenderer_tpu.renderers.mlt import render_mlt
+    scene = _cornel("Metropolis.scn")
+    scene.render_option.width = scene.render_option.height = 500
+    chains, muts = 4096, 1024
+    render_mlt(scene, chains=chains, mutations=128, seed=0)   # compile
+    t0 = time.perf_counter()
+    render_mlt(scene, chains=chains, mutations=muts, seed=1)
+    dt = time.perf_counter() - t0
+    lines.append(f"| MLT Metropolis.scn | 500x500, {chains}x{muts} "
+                 f"mutations | - | {dt:.3f} "
+                 f"| {chains * muts / dt / 1e3:.1f} Kmut/s |")
+    print("\n".join(lines))
     return 0
 
 

@@ -22,11 +22,12 @@ from nrenderer_tpu import (
     load_scn,
 )
 from nrenderer_tpu.io.image import write_png
+from nrenderer_tpu.resources import scene_path
 from nrenderer_tpu.scene.model import Material, Property, PropertyType
 
 
 def build_scene() -> Scene:
-    scene = load_scn("/root/reference/resource/conductors.scn")
+    scene = load_scn(scene_path("conductors.scn"))
 
     white = Material(name="WhiteWall")
     white.register_property(Property("diffuseColor", PropertyType.RGB,
@@ -82,7 +83,7 @@ def build_scene() -> Scene:
 
 
 def main() -> int:
-    out = sys.argv[1] if len(sys.argv) > 1 else "/tmp/conductors_grid.png"
+    out = sys.argv[1] if len(sys.argv) > 1 else "conductors_grid.png"
     nrenderer_tpu._register_builtin_renderers()
     from nrenderer_tpu.server.manager import ComponentManager
     scene = build_scene()

@@ -1,7 +1,7 @@
 // nrnative: native host-side runtime components for nrenderer_tpu.
 //
 // The reference framework is ~11k LoC of C++ end to end (SURVEY.md §2); the
-// TPU rebuild keeps the COMPUTE path in XLA/Pallas, and provides native
+// rebuild keeps the COMPUTE path in XLA/Pallas, and provides native
 // implementations of the host-side runtime hot paths, loaded via ctypes with
 // a pure-python fallback (nrenderer_tpu/native/__init__.py):
 //

@@ -1,13 +1,15 @@
-"""nrenderer_tpu — a TPU-native (JAX/XLA/Pallas) rebuild of NRenderer.
+"""nrenderer_tpu — a JAX (XLA + Pallas) rebuild of NRenderer.
 
 A pluggable offline rendering framework with the capabilities of
 civilizwa/nrenderer: the `.scn` scene DSL and OBJ importers, the renderer
 registry ("RenderComponent" plugin surface), and the four renderers — RayCast
 Phong, SimplePathTracer, AccPathTracer (BVH + conductor/dielectric/microfacet
 BSDFs + env maps), and MetropolisLightTransport — each implemented as a
-jit-compiled wavefront megakernel over SoA ray batches instead of per-pixel
-C++ thread loops.
+jit-compiled wavefront over SoA ray batches (and, for dense scenes on the
+GPU, one Pallas megakernel) instead of per-pixel C++ thread loops.
 """
+import os
+
 __version__ = "0.1.0"
 
 from .scene.model import (  # noqa: F401
@@ -30,16 +32,20 @@ def _register_builtin_renderers() -> None:
                             preview)  # noqa: F401
 
 
-def enable_compilation_cache(path: str = None) -> None:
-    """Persist XLA compilations across processes (mesh-scene kernels compile
-    for minutes; the cache makes re-renders of the same scene shape instant).
-    Called by the CLI/bench entry points; library users opt in."""
-    import os
+CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), ".jax_cache")
+
+
+def enable_compilation_cache() -> None:
+    """Persist XLA compilations across processes (each scene and camera
+    compiles its own program; the cache makes re-renders of the same scene
+    shape start at once).  Called by the CLI and bench entry points.
+
+    Where JAX_COMPILATION_CACHE_DIR is set, JAX reads it itself and nothing
+    is set here; otherwise the cache is `.jax_cache/` in the checkout."""
     import jax
-    path = path or os.environ.get(
-        "NR_JAX_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "nrenderer_tpu",
-                     "jax"))
-    os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return
+    os.makedirs(CACHE_DIR, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)

@@ -1,6 +1,6 @@
 """Command-line interface.
 
-The reference is a GUI app (GLFW+ImGui); the TPU-native rebuild is headless:
+The reference is a GUI app (GLFW+ImGui); this rebuild is headless:
 
     python -m nrenderer_tpu list-renderers
     python -m nrenderer_tpu render --scene cornel.scn --renderer SimplePathTracer \
@@ -22,7 +22,7 @@ import numpy as np
 
 
 def _build_scene(args):
-    from .scene.model import AmbientType, Scene
+    from .scene.model import Scene
     from .io.scn import load_scn
     from .io.obj import load_obj
 
@@ -58,14 +58,12 @@ def _build_scene(args):
     if args.ambient:
         scene.ambient.constant = tuple(args.ambient)
     if args.env_map:
-        from .io.image import load_image
-        from .scene.model import Texture
-        pixels = load_image(args.env_map)
-        if pixels is None:
-            raise SystemExit(f"cannot decode env map {args.env_map}")
-        scene.ambient.environment_map = len(scene.textures)
-        scene.textures.append(Texture(name=args.env_map, pixels=pixels))
-        scene.ambient.type = AmbientType.ENVIRONMENT_MAP
+        from .io.image import ImageDecodeError
+        from .resources import attach_env_map
+        try:
+            attach_env_map(scene, args.env_map)
+        except ImageDecodeError as exc:
+            raise SystemExit(f"cannot decode env map: {exc}") from exc
     return scene
 
 
@@ -112,13 +110,13 @@ def _cmd_render(args) -> int:
     mgr = ComponentManager()
     viewer = None
     if args.serve is not None:
-        # live viewer (VERDICT r3 #8): the headless ScreenView analogue —
+        # live viewer: the headless ScreenView analogue —
         # watch progressive previews refresh in a browser while the render
         # runs (reference ScreenView.cpp:98-178)
         # MLT mid-render Screen posts only when someone is watching: each
-        # preview flushes the async block pipeline and fetches the film
-        # (measured ~1.6x on headless steady rate), so the default is off
-        # and --serve turns it on (explicit env wins either way)
+        # preview flushes the async block pipeline and fetches the film,
+        # so the default is off and --serve turns it on (explicit env wins
+        # either way)
         os.environ.setdefault("NR_MLT_PREVIEW_BLOCKS", "1")
         from .server.viewer import ScreenViewer
         viewer = ScreenViewer(get_server().screen, port=args.serve,
@@ -208,7 +206,7 @@ def _render_multichip(args, scene) -> int:
     cam = make_camera(scene.camera)
     if args.checkpoint or args.progressive or args.serve is not None:
         # host-chunked sharded render: checkpoint/resume + progressive
-        # previews compose with --devices (VERDICT r3 #5)
+        # previews compose with --devices
         from .server.registry import get_server
         from .parallel.mesh import render_multichip_resumable
         fp_parts = [args.renderer, args.depth]
@@ -220,13 +218,8 @@ def _render_multichip(args, scene) -> int:
             n_tri = int(np.asarray(arrays.tri_valid).sum())
             textures = arrays.textures if ss.tri_uv else None
             if n_tri > 64:
-                if textures:
-                    from .ops.bvh import pack_blocked_triangles
-                    tri_bvh = pack_blocked_triangles(
-                        arrays, make_mat_channels(ss))
-                else:
-                    from .ops.bvh import build_mesh_accel
-                    tri_bvh = build_mesh_accel(arrays, make_mat_channels(ss))
+                from .ops.bvh import build_mesh_engine
+                tri_bvh = build_mesh_engine(arrays, make_mat_channels(ss))
             env_map = arrays.env_map if ss.ambient_type == 1 else None
             fp_parts += [ss, bool(tri_bvh), bool(env_map)]
             fp_arrays = (((np.asarray(arrays.env_map),) if env_map is not None
@@ -261,18 +254,11 @@ def _render_multichip(args, scene) -> int:
         from .parallel.mesh import render_multichip_acc
         tri_bvh = None
         n_tri = int(np.asarray(arrays.tri_valid).sum())
-        # mirror the single-device routing (ADVICE r2): textured meshes need
-        # the BlockedTris sweep (it interpolates UVs); untextured meshes get
-        # the MeshAccel fast path
+        # the same mesh engine as the single-device renderer
         textures = arrays.textures if ss.tri_uv else None
         if n_tri > 64:
-            if textures:
-                from .ops.bvh import pack_blocked_triangles
-                tri_bvh = pack_blocked_triangles(arrays,
-                                                 make_mat_channels(ss))
-            else:
-                from .ops.bvh import build_mesh_accel
-                tri_bvh = build_mesh_accel(arrays, make_mat_channels(ss))
+            from .ops.bvh import build_mesh_engine
+            tri_bvh = build_mesh_engine(arrays, make_mat_channels(ss))
         env_map = arrays.env_map if ss.ambient_type == 1 else None
         if args.shard == "pixels":
             import jax.numpy as jnp
@@ -386,8 +372,8 @@ def _cmd_edit(args) -> int:
                 mgr.exec(args.renderer, snapshot)
                 result = mgr.wait()
             except Exception as exc:
-                # keep the editor alive: a crashing render (bad size, TPU
-                # worker hiccup) must not lose the in-memory edits
+                # keep the editor alive: a crashing render (bad size, out
+                # of device memory) must not lose the in-memory edits
                 result = None
                 print(f"render failed: {exc!r} (edit + apply to retry)",
                       file=sys.stderr)
@@ -469,7 +455,7 @@ def main(argv=None) -> int:
                     help="checkpoint file for resumable rendering "
                          "(SimplePathTracer / AccPathTracer / "
                          "MetropolisLightTransport; composes with "
-                         "--devices — sharded renders resume bit-exact)")
+                         "--devices)")
     pr.add_argument("--devices", type=int, default=1,
                     help="shard over N devices: sample budget for "
                          "SimplePathTracer/AccPathTracer, Markov chains "

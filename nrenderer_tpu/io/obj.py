@@ -29,7 +29,7 @@ from ..scene.model import (
     Material, Mesh, Model, Node, NodeType, Property, PropertyType, Scene,
     Texture,
 )
-from .image import load_image
+from .image import ImageDecodeError, load_image
 
 
 class ObjParseError(Exception):
@@ -62,8 +62,9 @@ def _load_map(scene: Scene, mtl_path: str, tex_name: str,
     `material` as a TEXTURE_ID property; silently skipped when the image
     is missing/undecodable (reference behavior for a bad stb load)."""
     tex_path = os.path.join(os.path.dirname(mtl_path), tex_name)
-    pixels = load_image(tex_path)
-    if pixels is None:
+    try:
+        pixels = load_image(tex_path)
+    except ImageDecodeError:
         return
     tex_idx = len(scene.textures)
     scene.textures.append(

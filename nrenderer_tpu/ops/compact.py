@@ -1,9 +1,8 @@
-"""Shared wavefront-compaction index builder.
-
-One idiom, three hot users: the Pallas mesh sweep's ray compaction
-(`mesh_pallas.intersect_triangles_mesh`), the XLA blocked sweep's
-(`pt_core._blocked_compacted`), and the staged wavefront's RR pack
+"""Wavefront compaction for the staged wavefront's ray pack
 (`renderers/_wavefront.build_staged_wavefront_fn`).
+
+`shift_pack_channels` is the pack itself; `pack_indices` is the plain
+cumsum + scatter form it is tested against.
 """
 from __future__ import annotations
 
@@ -15,9 +14,8 @@ import jax.numpy as jnp
 def pack_indices(mask: jnp.ndarray, cap: int) -> jnp.ndarray:
     """Indices of the first `cap` True lanes of `mask`, n-filled past the
     last hit — bit-identical to `jnp.nonzero(mask, size=cap,
-    fill_value=n)[0]` but 1.6x faster at 8M lanes (88 -> 55 ms/bounce
-    measured on v5e: XLA lowers `nonzero` through a sort; this is one
-    exclusive cumsum + one scatter).
+    fill_value=n)[0]`, which XLA lowers through a sort; this is one
+    exclusive cumsum + one scatter.
 
     The result is sorted ascending, unique below n, and safe to use with
     `jnp.take(..., mode="clip")` + `.at[ridx].set(..., mode="drop",
@@ -35,11 +33,10 @@ def shift_pack_channels(mask: jnp.ndarray, channels: Sequence[jnp.ndarray],
                                            jnp.ndarray, jnp.ndarray]:
     """Stable stream compaction WITHOUT gathers, scatters, or sorts: move
     every masked lane of each `(n,)` channel to the front using log2(n)
-    staged shift-selects (roll + where), which XLA lowers to plain vector
-    slices/selects at HBM streaming speed.  TPU per-element gathers and
-    scatters run ~100-150M elem/s; this replaces the pack-scatter + 7
-    gathers of the mesh compaction pipe (~105 ms at 8M rays on v5e) with
-    ~23 full-bandwidth passes (~25 ms).
+    staged shift-selects (roll + where), which XLA lowers to plain
+    slices/selects that stream through memory: ~log2(n) passes in place of
+    a pack-scatter and one gather per channel.  Whether that beats
+    cumsum + gather on the GPU is open (PERF.md).
 
     Why it is correct: hit j's target slot is pos[j] (its exclusive hit
     count), so its left-shift distance s_j = j - pos[j] is NON-DECREASING
@@ -52,7 +49,7 @@ def shift_pack_channels(mask: jnp.ndarray, channels: Sequence[jnp.ndarray],
     (mod 2^(k+1)) that is both < 2^k and >= 0 (monotonicity) — impossible.
     Slots a mover vacates keep a stale copy, but every slot < n_hit is
     eventually overwritten by its true hit, and slots >= n_hit are masked
-    off by the caller (the sweep's n_valid ray-cap zeroing).
+    off by the caller.
 
     Returns `(packed_channels, ridx, n_hit)`: each packed channel sliced
     to `(cap,)` (slot p < n_hit holds channel[j] of the p-th hit; stale
@@ -66,9 +63,7 @@ def shift_pack_channels(mask: jnp.ndarray, channels: Sequence[jnp.ndarray],
     n_hit = pos[-1] + 1
     # left-shift distance; -1 marks non-hits (never a mover)
     s = jnp.where(mask, iota - pos, jnp.int32(-1))
-    # per-channel 1D shift-selects: a stacked (C, n) plane was tried and
-    # measured SLOWER on v5e (68 vs 48 ms/bounce at 8M — XLA lowers the
-    # 2D minor-dim roll worse than C separate streaming fusions)
+    # per-channel 1D shift-selects: one streaming fusion per channel
     chans = list(channels)
     for k in range(max(1, (n - 1).bit_length())):
         step = 1 << k
@@ -88,71 +83,3 @@ def shift_pack_channels(mask: jnp.ndarray, channels: Sequence[jnp.ndarray],
     valid = pslot < n_hit
     ridx = jnp.where(valid, pslot + s[:cap], n)
     return tuple(c[:cap] for c in chans), ridx, n_hit
-
-
-def shift_unpack_channels(mask: jnp.ndarray,
-                          packed: Sequence[jnp.ndarray],
-                          misses: Sequence[jnp.ndarray],
-                          ridx: jnp.ndarray = None
-                          ) -> Tuple[jnp.ndarray, ...]:
-    """Inverse of `shift_pack_channels`: distribute per-slot results back
-    to the masked lanes, without a scatter.  `packed[i][p]` is the result
-    for the p-th True lane of `mask` (slots past the hit count ignored);
-    `misses[i]` are the per-channel fill arrays (or scalars) for False
-    lanes.  Returns the (n,)-shaped channels.
-
-    Equivalent to `miss.at[pack_indices(mask, cap)].set(packed, "drop")`
-    but runs the pack's staged shifts in REVERSE (bits MSB->LSB, moving
-    right), which streams at HBM speed instead of TPU scatter speed
-    (measured 6 scatter-backs ~80 ms vs ~25 ms reversed at 8M rays).
-    Collision-free by time-reversal: every intermediate state is a valid
-    forward state, where hit positions are distinct.
-    """
-    n = mask.shape[0]
-    cap = packed[0].shape[0]
-    pslot = jnp.arange(cap, dtype=jnp.int32)
-
-    def grow(a, fill):
-        if a.shape[0] >= n:
-            return a[:n]
-        return jnp.concatenate(
-            [a, jnp.full((n - a.shape[0],), fill, a.dtype)])
-
-    pos = jnp.cumsum(mask.astype(jnp.int32)) - 1
-    if ridx is not None:
-        # the pack's ridx is exactly slot + shift (n-filled past the hits):
-        # reconstruct the per-slot shift channel for free
-        s_packed = jnp.where(ridx < n, ridx - pslot, jnp.int32(-1))
-    else:
-        iota = jnp.arange(n, dtype=jnp.int32)
-        n_hit = pos[-1] + 1
-        s_lane = jnp.where(mask, iota - pos, jnp.int32(-1))
-        (s_re,), _, _ = shift_pack_channels(s_lane > jnp.int32(-1),
-                                            (s_lane,), cap)
-        s_packed = jnp.where(pslot < n_hit, s_re, jnp.int32(-1))
-    s = grow(s_packed, -1)
-    # hits past the buffer (overflow) never received a slot — they keep
-    # the miss fill, matching the scatter's mode="drop"
-    covered = mask & (pos < cap)
-    chans = [grow(a, 0) for a in packed]
-    for k in reversed(range(max(1, (n - 1).bit_length()))):
-        step = 1 << k
-        if step >= n:
-            continue
-        mover = (s >= 0) & (((s >> k) & 1) == 1)
-        landing = jnp.concatenate([jnp.zeros((step,), jnp.bool_),
-                                   mover[:-step]])
-
-        def shsel(a, landing=landing, step=step):
-            return jnp.where(landing,
-                             jnp.concatenate([a[-step:], a[:-step]]), a)
-
-        # deaden the s of vacated slots: a stale copy that kept a live s
-        # would keep moving and could overwrite an element that already
-        # settled (the forward direction's arrival-order protection does
-        # not mirror under MSB-first processing)
-        s = jnp.where(landing, shsel(s),
-                      jnp.where(mover, jnp.int32(-1), s))
-        chans = [shsel(c) for c in chans]
-    return tuple(jnp.where(covered, c, m)
-                 for c, m in zip(chans, misses))

@@ -27,30 +27,6 @@ def sample_env_map(env: jnp.ndarray, d: jnp.ndarray) -> jnp.ndarray:
     return jnp.take(flat, y * we + x, axis=0, mode="clip")
 
 
-def bin_env_map(env, rows: int = 32, lanes: int = 128):
-    """Downsample an equirect env map to a (3, rows, lanes) bin table for
-    the Pallas megakernel's in-kernel lookup (per-lane dynamic_gather works
-    on 128-lane rows; `rows` layered gathers cover rows*lanes bins).
-
-    Each source texel lands in bin (y*rows//He, x*lanes//We) and bins hold
-    the mean of their texels — when the env map is already (rows, lanes)
-    this is the identity, so kernel lookups match `sample_env_map` exactly.
-    Returns float32 numpy (3, rows, lanes)."""
-    import numpy as np
-    e = np.asarray(env, np.float32)
-    he, we = e.shape[0], e.shape[1]
-    ys = (np.arange(he) * rows) // he
-    xs = (np.arange(we) * lanes) // we
-    flat = ys[:, None] * lanes + xs[None, :]
-    acc = np.zeros((rows * lanes, 3), np.float64)
-    cnt = np.zeros((rows * lanes,), np.int64)
-    np.add.at(acc, flat.reshape(-1), e.reshape(-1, 3))
-    np.add.at(cnt, flat.reshape(-1), 1)
-    acc /= np.maximum(cnt, 1)[:, None]
-    return np.ascontiguousarray(
-        acc.reshape(rows, lanes, 3).transpose(2, 0, 1).astype(np.float32))
-
-
 def sample_env_map_v3(env: jnp.ndarray, d) -> "V3":
     """SoA variant: d is a V3 of (N,) components; returns V3 radiance."""
     from .soa import V3, normalize3

@@ -12,9 +12,9 @@ keeping the PT variants' epsilon and boundary conventions (SURVEY.md §2.8):
     plane), near-parallel reject at |n.d| ~ 1e-7
   - area light: the plane test on (position, u, v) with normal cross(u, v)
 
-TPU-native design: all primitives of all types are evaluated for all rays as
-one (P_total, N) matrix — rays dense in the 128-lane minor axis, primitives on
-the sublane axis — followed by a one-hot argmin.  Attribute "gathers" are
+Design: all primitives of all types are evaluated for all rays as one
+(P_total, N) matrix — rays dense in the minor axis, primitives on the major
+axis — followed by a one-hot argmin.  Attribute "gathers" are
 mask-reductions / tiny matmuls (`soa.select_prim`), not dynamic gathers.  The
 `closestHitObject` brute-force loops (`SimplePathTracer.cpp:104-129`) map to a
 single fused masked reduction."""
@@ -368,7 +368,7 @@ def _is_zero(v) -> bool:
 def _lin3(c, x, y, z):
     """Trace-time-folded linear combination c[0]*x + c[1]*y + c[2]*z where c
     are Python floats: zero terms are dropped and unit factors skipped BEFORE
-    lowering (XLA/Mosaic don't fold 0*x for floats).  Axis-aligned planes and
+    lowering (compilers don't fold 0*x for floats).  Axis-aligned planes and
     axis-parallel edges — most of a Cornell box — cost 1 multiply instead
     of 5 ops.  Operands may themselves be literal 0.0 (from an earlier fold).
     """

@@ -5,8 +5,8 @@ One implementation of the reference's per-bounce estimator
 
   - the XLA wavefront (renderers/simple_pt.py): (N,) component arrays,
     uniforms from jax.random
-  - the Pallas megakernel (ops/pt_pallas.py): (SUB, 128) VMEM tiles,
-    uniforms from the TPU hardware PRNG
+  - the GPU megakernel (ops/pt_pallas.py): one (BLOCK,) pixel block per
+    program, uniforms from the counter-based `hash_uniform`
 
 Everything here is pure jnp elementwise math over whatever shape the caller's
 V3 components carry."""
@@ -21,7 +21,6 @@ import numpy as np
 from .intersect import (
     StaticScene, intersect_area_lights_unrolled, intersect_scene_unrolled,
 )
-from .compact import shift_pack_channels, shift_unpack_channels
 from .soa import V3, cross3, dot3, normalize3, where3
 
 PI = 3.14159265358979323846
@@ -55,11 +54,9 @@ def hash_uniform(pixel_id: jnp.ndarray, sample, draw: int,
     """Stateless counter-based uniform in [0,1): a lowbias32-style integer
     hash of (pixel, sample, draw-site, seed).
 
-    Used by the Pallas megakernel instead of the TPU hardware PRNG stream —
-    sequential draws from `pltpu.prng_random_bits` showed visible ring
-    correlations in the rendered film; a counter-based hash gives every
-    (pixel, sample, bounce, site) an independent value, exactly like the
-    threefry streams of the XLA engine, at ~6 integer ops."""
+    Used by the GPU megakernel: a counter-based hash gives every (pixel,
+    sample, bounce, site) an independent value, like the threefry streams
+    of the XLA engine, at ~6 integer ops and with no state to carry."""
     dconst = (draw * 0x27D4EB2F) & 0xFFFFFFFF
     if dconst >= 1 << 31:
         dconst -= 1 << 32
@@ -79,8 +76,7 @@ def hash_uniform(pixel_id: jnp.ndarray, sample, draw: int,
 def uniform_from_bits(bits: jnp.ndarray) -> jnp.ndarray:
     """uint32 random bits -> float32 uniforms in [0, 1): take the top 24 bits
     (float32 mantissa width) and scale.  The shifted value has a zero sign
-    bit, so it is viewed as int32 before the float convert (Mosaic has no
-    uint32->f32 cast)."""
+    bit, so it is viewed as int32 before the float convert."""
     shifted = jax.lax.bitcast_convert_type(
         bits >> jnp.uint32(8), jnp.int32)
     return shifted.astype(jnp.float32) * jnp.float32(2 ** -24)
@@ -109,14 +105,14 @@ def onb_local(normal: V3, vec: V3) -> V3:
 
 def closest_hit(ss: StaticScene, o: V3, d: V3, t_min: float, mat_channels,
                 tri_bvh=None, alive=None, with_uv: bool = False,
-                unique_pids: bool = False, coherent: bool = False):
+                unique_pids: bool = False):
     """Closest hit: unrolled constant-folded brute force, with the triangle
     pool optionally routed through a flattened BVH walk (`tri_bvh` =
     (FlatBVH, TrianglePack), used by the renderers when the mesh-expanded
     triangle count makes brute force lose — the acc_path_tracing plugin's
     whole reason to exist, `AccPathTracer.cpp:58-62`).
 
-    `unique_pids`: the tri_bvh engines report the TRIANGLE-ARRAY index as
+    `unique_pids`: the BVH walk reports the TRIANGLE-ARRAY index as
     prim_id while the dense pass enumerates its own prims from 0, so the
     two id spaces collide.  Callers that compare prim ids across hits
     (MLT's visibility check, `renderers/mlt.py` — reference
@@ -126,59 +122,15 @@ def closest_hit(ss: StaticScene, o: V3, d: V3, t_min: float, mat_channels,
         return intersect_scene_unrolled(ss, o, d, t_min=t_min,
                                         mat_channels=mat_channels,
                                         with_uv=with_uv)
-    from .bvh import (
-        BlockedTris, MeshAccel, intersect_triangles_blocked,
-        intersect_triangles_bvh,
-    )
+    from .bvh import intersect_triangles_bvh
     ss_nt = ss._replace(tri=[], tri_uv=())
     hit = intersect_scene_unrolled(ss_nt, o, d, t_min=t_min,
                                    mat_channels=mat_channels,
                                    with_uv=with_uv)
-    uvb = None
-    if callable(tri_bvh):
-        # in-megakernel Pallas sweep closure (pt_pallas folds the blocked
-        # sweep into its bounce loop): (o, d, t_cap) -> winner tuple with
-        # t_best staying at the cap on miss; channels reconstructed from
-        # the winner's material id by a select chain (tiny static table).
-        # With `with_uv` the closure also returns the winner's (uvx, uvy,
-        # tex) interpolated during the sweep (mesh_pallas.sweep_tile).
-        from .mesh_pallas import _channels_from_mat
-        t_cap = hit.t
-        if alive is not None:
-            t_cap = jnp.where(alive, t_cap, jnp.zeros_like(t_cap))
-        out = tri_bvh(o, d, t_cap)
-        if with_uv:
-            tb, idxb, nxb, nyb, nzb, matb, uvxb, uvyb, texb = out
-        else:
-            tb, idxb, nxb, nyb, nzb, matb = out
-        missb = idxb < 0
-        tb = jnp.where(missb, jnp.full_like(tb, jnp.inf), tb)
-        chb = _channels_from_mat(matb, missb, mat_channels)
-        pidb = jnp.where(missb, -1.0, idxb)
-        matb = jnp.where(missb, 0.0, matb)
-        if with_uv:
-            uvb = (uvxb, uvyb, jnp.where(missb, -1.0, texb))
-    elif isinstance(tri_bvh, MeshAccel):
-        # Pallas sweep engine: VMEM-resident carry, in-kernel block culling
-        assert not with_uv, "UVs not carried through the Pallas mesh sweep"
-        from .mesh_pallas import intersect_triangles_mesh
-        # `coherent`: pixel-coherent camera rays skip the entry-cell sort
-        # (already tile-coherent; the sort would run at its LARGEST window)
-        tb, nxb, nyb, nzb, matb, pidb, chb = intersect_triangles_mesh(
-            tri_bvh, o, d, t_min, hit.t, mat_channels, alive=alive,
-            sort=False if coherent else None)
-    elif isinstance(tri_bvh, BlockedTris):
-        out = _blocked_compacted(tri_bvh, o, d, t_min, hit.t,
-                                 with_uv=with_uv)
-        if with_uv:
-            tb, nxb, nyb, nzb, matb, pidb, chb, uvb = out
-        else:
-            tb, nxb, nyb, nzb, matb, pidb, chb = out
-    else:
-        assert not with_uv, "UVs not carried through the BVH cursor walk"
-        bvh, tp = tri_bvh
-        tb, nxb, nyb, nzb, matb, pidb, chb = intersect_triangles_bvh(
-            bvh, tp, o, d, t_min=t_min)
+    bvh, tp = tri_bvh
+    out = intersect_triangles_bvh(bvh, tp, o, d, t_min=t_min,
+                                  with_uv=with_uv)
+    tb, nxb, nyb, nzb, matb, pidb, chb = out[:7]
     if unique_pids:
         # dense enumeration above ran WITHOUT triangles (spheres, planes)
         n_dense = len(ss.sph) + len(ss.pln)
@@ -193,132 +145,15 @@ def closest_hit(ss: StaticScene, o: V3, d: V3, t_min: float, mat_channels,
     point = V3(o.x + t * d.x, o.y + t * d.y, o.z + t * d.z)
     uv = hit.uv
     if with_uv:
-        if uvb is None:
-            uvb = (jnp.zeros_like(t), jnp.zeros_like(t),
-                   jnp.full_like(t, -1.0))
         base = hit.uv if hit.uv is not None else (
             jnp.zeros_like(t), jnp.zeros_like(t), jnp.full_like(t, -1.0))
         uv = tuple(jnp.where(closer, ub, hb)
-                   for ub, hb in zip(uvb, base))
+                   for ub, hb in zip(out[7], base))
     return hit._replace(t=t, valid=jnp.isfinite(t), point=point,
                         normal=normal,
                         mat_id=jnp.where(closer, matb, hit.mat_id),
                         prim_id=jnp.where(closer, pidb, hit.prim_id),
                         channels=chans, uv=uv)
-
-
-COMPACT_FRACTION = 4  # mesh-ray buffer capacity = N / this
-
-
-def _blocked_compacted(bt, o: V3, d: V3, t_min: float, t_dense,
-                       with_uv: bool = False):
-    """Mesh-level ray compaction + blocked triangle sweep.
-
-    In a lockstep wavefront, rays that never approach the mesh would still
-    pay the full per-triangle cost.  Instead: slab-test the mesh's top-level
-    AABB (culling also on the already-found dense-prim hit distance), pack
-    the hitting rays into a fixed-capacity compact buffer (`jnp.nonzero` with
-    a static size), sweep ONLY those, and scatter the results back.  For a
-    bunny-in-a-box workload only a few percent of bounce rays reach the mesh
-    bbox, so this converts the sweep's cost from O(N * T) to
-    O((N / COMPACT_FRACTION) * T).
-
-    Capacity is fixed (XLA needs static shapes): if more than N/4 rays hit
-    the mesh bbox in one wavefront, the whole wavefront falls back to the
-    uncompacted sweep via `lax.cond` — exact in every configuration, just
-    slower for that bounce — and a warning is emitted through
-    `jax.debug.callback` so mesh-dominant viewpoints are visible in the log
-    rather than silently slow.  N/4 is far above observed hit fractions for
-    mesh-in-scene workloads; set COMPACT_FRACTION = 1 to keep even the
-    fallback branch un-compiled."""
-    from .bvh import intersect_triangles_blocked
-
-    n = o.x.shape[0]
-    cap = max(1024, n // COMPACT_FRACTION)
-    cap = min(cap, n)
-    mesh_min = bt.bb_min.min(axis=0)   # (3,) traced scalars
-    mesh_max = bt.bb_max.max(axis=0)
-
-    def axis(mn, mx, oo, dd):
-        inv = 1.0 / jnp.where(jnp.abs(dd) < 1e-20, 1e-20, dd)
-        t0 = (mn - oo) * inv
-        t1 = (mx - oo) * inv
-        return jnp.minimum(t0, t1), jnp.maximum(t0, t1)
-
-    nx0, nx1 = axis(mesh_min[0], mesh_max[0], o.x, d.x)
-    ny0, ny1 = axis(mesh_min[1], mesh_max[1], o.y, d.y)
-    nz0, nz1 = axis(mesh_min[2], mesh_max[2], o.z, d.z)
-    t_near = jnp.maximum(jnp.maximum(nx0, ny0), nz0)
-    t_far = jnp.minimum(jnp.minimum(nx1, ny1), nz1)
-    m = ((t_near <= t_far) & (t_far >= t_min)
-         & (jnp.maximum(t_near, t_min) < t_dense))
-
-    def unpack(out_flat, k):
-        """flat tuple -> (t, nx, ny, nz, mat, pid, chans[, uv])"""
-        head = out_flat[:6]
-        if with_uv:
-            return head + (tuple(out_flat[6:6 + k]),
-                           tuple(out_flat[6 + k:]))
-        return head + (tuple(out_flat[6:]),)
-
-    if cap >= n:  # compaction can't help; sweep everything directly
-        return intersect_triangles_blocked(bt, o, d, t_min=t_min,
-                                           with_uv=with_uv)
-
-    n_hit = jnp.sum(m.astype(jnp.int32))
-    k_ch = bt.channels.shape[0]
-
-    def compacted(_):
-        # log-shift compaction: no gathers (see compact.shift_pack_channels;
-        # same rewrite as the Pallas mesh pipe, 213 -> 46 ms/bounce at 8M)
-        (ox, oy, oz, dx, dy, dz), idx, _ = shift_pack_channels(
-            m, (o.x, o.y, o.z, d.x, d.y, d.z), cap)
-        oc, dc = V3(ox, oy, oz), V3(dx, dy, dz)
-        out = intersect_triangles_blocked(bt, oc, dc, t_min=t_min,
-                                          with_uv=with_uv)
-        if with_uv:
-            tc, nxc, nyc, nzc, matc, pidc, chc, uvc = out
-        else:
-            tc, nxc, nyc, nzc, matc, pidc, chc = out
-            uvc = ()
-
-        inf = jnp.float32(jnp.inf)
-        # results ride back on the REVERSED shift steps (no scatters —
-        # same rewrite as the Pallas mesh pipe, ~80 -> 43 ms at 8M rays)
-        zeros = jnp.zeros((n,))
-        packed_res = (tc, nxc, nyc, nzc, matc, pidc) + chc
-        miss_res = (jnp.full((n,), inf), zeros, zeros, zeros, zeros,
-                    jnp.full((n,), -1.0)) + (zeros,) * len(chc)
-        if with_uv:
-            packed_res = packed_res + uvc
-            miss_res = miss_res + (zeros, zeros, jnp.full((n,), -1.0))
-        return shift_unpack_channels(m, packed_res, miss_res, ridx=idx)
-
-    def full_sweep(_):
-        jax.debug.callback(_warn_compaction_overflow, n_hit, cap,
-                           ordered=False)
-        out = intersect_triangles_blocked(bt, o, d, t_min=t_min,
-                                          with_uv=with_uv)
-        if with_uv:
-            tb, nxb, nyb, nzb, matb, pidb, chb, uvb = out
-            return (tb, nxb, nyb, nzb, matb, pidb) + chb + uvb
-        tb, nxb, nyb, nzb, matb, pidb, chb = out
-        return (tb, nxb, nyb, nzb, matb, pidb) + chb
-
-    out = jax.lax.cond(n_hit > cap, full_sweep, compacted, operand=None)
-    return unpack(out, k_ch)
-
-
-def _warn_compaction_overflow(n_hit, cap):
-    """Host-side overflow notice (runs only when the fallback branch fires)."""
-    try:
-        from ..server.registry import get_server
-        get_server().logger.warning(
-            f"mesh ray compaction overflow: {int(n_hit)} rays hit the mesh "
-            f"AABB (capacity {int(cap)}); fell back to the full sweep for "
-            "this wavefront")
-    except Exception:
-        pass
 
 
 def diffuse_bounce(ss: StaticScene, albedo_ch, o: V3, d: V3, throughput: V3,
@@ -349,11 +184,8 @@ def diffuse_bounce(ss: StaticScene, albedo_ch, o: V3, d: V3, throughput: V3,
 
     ax, ay, az = hit.channels
     if textures:
-        if callable(textures):  # in-kernel binned resolver (pt_pallas)
-            alb = textures(hit.uv, V3(ax, ay, az))
-        else:
-            from .texture import resolve_diffuse
-            alb = resolve_diffuse(textures, hit.uv, V3(ax, ay, az))
+        from .texture import resolve_diffuse
+        alb = resolve_diffuse(textures, hit.uv, V3(ax, ay, az))
         ax, ay, az = alb.x, alb.y, alb.z
     local = hemisphere_from_uv(u1, u2)
     new_d = normalize3(onb_local(hit.normal, local), eps=1e-20)
@@ -553,8 +385,8 @@ def make_mat_channels(ss: StaticScene):
     (type, diffuse rgb, albedo rgb, ior, absorbed rgb, eta_r rgb, eta_i rgb,
      roughness, f0, metalness) = 20 channels; +1 `stex` channel (the
     material's specularMap/map_Ks texture id, -1 = none) appended ONLY when
-    the scene actually carries a specular map on a UV'd face — the extra
-    carried vreg is free for every other scene.  The decision is a function
+    the scene actually carries a specular map on a UV'd face — every other
+    scene carries one channel less.  The decision is a function
     of `ss` alone, so every caller sharing the StaticScene agrees on the
     channel count (bsdf_bounce detects it by len)."""
     with_stex = bool(ss.tri_uv) and any(
@@ -576,19 +408,16 @@ def make_mat_channels(ss: StaticScene):
 
 def bsdf_bounce(ss: StaticScene, mat_ch, o: V3, d: V3, throughput: V3,
                 radiance: V3, alive, u1, u2, u3, t_min: float = 1e-6,
-                tri_bvh=None, with_miss: bool = False, textures=None,
-                coherent: bool = False
+                tri_bvh=None, with_miss: bool = False, textures=None
                 ) -> Tuple[V3, V3, V3, V3, jnp.ndarray]:
     """One bounce of the AccPathTracer estimator
     (`AccPathTracer.cpp:120-181`): closest hit, light hit, then branchless
     dispatch over material type {0 Lambertian, 1 conductor, 2 glass,
     3 microfacet} (`acc/include/shaders/ShaderCreator.hpp:17-39`).
     `with_miss`: also return the env-candidate miss mask (see
-    diffuse_bounce); `textures`: diffuseMap sampling (see diffuse_bounce);
-    `coherent`: rays are pixel-coherent (camera bounce) — the mesh sweep
-    skips its entry-cell sort."""
+    diffuse_bounce); `textures`: diffuseMap sampling (see diffuse_bounce)."""
     hit = closest_hit(ss, o, d, t_min, mat_ch, tri_bvh, alive=alive,
-                      with_uv=bool(textures), coherent=coherent)
+                      with_uv=bool(textures))
     t_l, light_rad = intersect_area_lights_unrolled(ss, o, d, t_min=t_min)
 
     obj_first = alive & hit.valid & (hit.t < t_l)
@@ -605,19 +434,14 @@ def bsdf_bounce(ss: StaticScene, mat_ch, o: V3, d: V3, throughput: V3,
     diffuse = V3(dr, dg, db)
     albedo = V3(ar, ag, ab_)
     if textures:
-        if callable(textures):  # in-kernel binned resolver (pt_pallas)
-            diffuse = textures(hit.uv, diffuse)
-            if stex is not None:
-                albedo = textures((hit.uv[0], hit.uv[1], stex), albedo)
-        else:
-            from .texture import resolve_diffuse
-            diffuse = resolve_diffuse(textures, hit.uv, diffuse)
-            if stex is not None:
-                # map_Ks modulates the specular tint (conductor/microfacet/
-                # plastic albedo) — exceeds the reference, which loads
-                # map_Ks (`ObjImporter.cpp:56-58`) but never samples it
-                albedo = resolve_diffuse(
-                    textures, (hit.uv[0], hit.uv[1], stex), albedo)
+        from .texture import resolve_diffuse
+        diffuse = resolve_diffuse(textures, hit.uv, diffuse)
+        if stex is not None:
+            # map_Ks modulates the specular tint (conductor/microfacet/
+            # plastic albedo) — exceeds the reference, which loads
+            # map_Ks (`ObjImporter.cpp:56-58`) but never samples it
+            albedo = resolve_diffuse(
+                textures, (hit.uv[0], hit.uv[1], stex), albedo)
     absorbed = V3(absr, absg, absb)
     eta_r = V3(err, erg, erb)
     eta_i = V3(eir, eig, eib)

@@ -31,8 +31,8 @@ PI = jnp.pi
 def make_base_key(seed: int, impl: str = None):
     """Base PRNG key for a render.
 
-    Default impl is `rbg` (XLA RngBitGenerator — a hardware RNG instruction
-    on TPU, far cheaper per sample than threefry's ~20 ALU ops).  Override
+    Default impl is `rbg` (XLA's RngBitGenerator, which the backend lowers
+    to its own generator instead of threefry's ~20 ALU ops).  Override
     with NR_PRNG=threefry2x32 for the counter-based reference-quality stream;
     rendering only needs statistical quality, and every (pixel, sample,
     bounce) still gets an independent folded stream either way."""

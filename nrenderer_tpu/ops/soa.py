@@ -1,10 +1,11 @@
-"""Component-SoA vector math — the TPU-native data layout for ray batches.
+"""Component-SoA vector math — the data layout for ray batches.
 
-A `(N, 3)` array places the 3 vector components in the minor (lane) dimension,
-using 3 of the VPU's 128 lanes; a batch of N rays then runs at ~2% of vector
-throughput.  Storing each component as its own `(N,)` array makes every
-elementwise op dense on the (8, 128) vector tiles.  This module is the
-foundation the render kernels are written against.
+A `(N, 3)` array interleaves the 3 vector components in the minor
+dimension, so every elementwise op strides over mixed components.  Storing
+each component as its own `(N,)` array makes every elementwise op a dense,
+contiguous stream, and lets the same bounce code run on (N,) wavefronts and
+on the megakernel's per-thread pixel blocks.  This module is the foundation
+the render kernels are written against.
 
 `V3` is a pytree (NamedTuple) of three same-shaped arrays with operator
 overloads, so kernel code reads like the glm math it replaces
@@ -97,7 +98,7 @@ def normalize3(a: V3, eps: float = 0.0) -> V3:
     n2 = dot3(a, a)
     if eps:
         # floor inside the f32 NORMAL range: eps^2 can be subnormal, which
-        # TPUs flush to zero -> rsqrt(0)=inf -> NaN
+        # flush-to-zero arithmetic turns into rsqrt(0)=inf -> NaN
         n2 = jnp.maximum(n2, max(eps * eps, 1.2e-38))
     inv = jax.lax.rsqrt(n2)
     return V3(a.x * inv, a.y * inv, a.z * inv)
@@ -122,8 +123,8 @@ def lerp3(a: V3, b: V3, t) -> V3:
 def select_prim(one_hot: jnp.ndarray, table: jnp.ndarray) -> jnp.ndarray:
     """Gather-free attribute selection: `one_hot` (P, N) float mask with one 1
     per column, `table` (P,) per-prim attribute -> (N,) selected values.
-    Lowered as a broadcast-multiply + sublane reduction, which beats a dynamic
-    gather on TPU for small P."""
+    Lowered as a broadcast-multiply + reduction over the small P axis, with
+    no dynamic gather."""
     return jnp.sum(one_hot * table[:, None], axis=0)
 
 

@@ -24,7 +24,7 @@ def sample_texture(tex: jnp.ndarray, u: jnp.ndarray, v: jnp.ndarray) -> V3:
     h, w = tex.shape[0], tex.shape[1]
     # Keep % for genuine out-of-[0,1] tiling, but CLAMP the boundary texel:
     # u=1.0 / v=0.0 must land on the last column / bottom row, not wrap to
-    # the opposite edge (ADVICE r2: floor((1-0.0)*h) % h hit row 0, the TOP,
+    # the opposite edge (floor((1-0.0)*h) % h hit row 0, the TOP,
     # for v=0 exactly — same clamp-after-flip recipe as sample_env_map).
     u = jnp.where((u < 0.0) | (u > 1.0), u - jnp.floor(u), u)
     v = jnp.where((v < 0.0) | (v > 1.0), v - jnp.floor(v), v)

@@ -2,10 +2,10 @@
 
 The reference's only parallelism is 16 `std::thread`s row-interleaving one
 image inside one process (`SimplePathTracer.cpp:80-87`, SURVEY.md §2.9).  The
-TPU-native replacement scales over chips instead: the spp budget is sharded
+replacement scales over devices instead: the spp budget is sharded
 over a 1-D `jax.sharding.Mesh` ("samples" axis) with `shard_map`; every device
 renders the full image at `spp / n_devices` samples with an independent PRNG
-stream, and the linear films are combined with one `psum` over ICI — the
+stream, and the linear films are combined with one `psum` — the
 collective replacing the reference's join barrier + shared pixel buffer.
 
 This is data parallelism over samples, the natural decomposition for Monte
@@ -39,7 +39,7 @@ def make_mesh(n_devices: Optional[int] = None,
     `devices` defaults to the default platform's `jax.devices()`; pass an
     explicit list (e.g. `jax.devices("cpu")`) to pin the platform.  Raises if
     fewer than `n_devices` are available — silent truncation would "pass" an
-    8-way dryrun on a 1-device mesh, testing no sharding at all (VERDICT r2)."""
+    8-way dryrun on a 1-device mesh, testing no sharding at all."""
     if devices is None:
         devices = jax.devices()
     n = len(devices) if n_devices is None else n_devices
@@ -142,9 +142,9 @@ def _build_sharded_film_pixels(trace_fn: Callable, width: int, height: int,
     (sample sharding all-reduces H*W*3 floats; this moves nothing).
 
     Returns `fn(cam, seeds) -> (H, W, 3)` gamma'd image (row 0 = BOTTOM).
-    `seeds[k]` seeds band k, so band k of the output is bit-identical to a
-    single-device `_linear_film(..., row0=k*h_loc, rows=h_loc)` render with
-    the same seed (tested in tests/test_parallel.py)."""
+    `seeds[k]` seeds band k, so band k of the output equals a single-device
+    `_linear_film(..., row0=k*h_loc, rows=h_loc)` render with the same seed
+    up to float summation order (tested in tests/test_parallel.py)."""
     axis = mesh.axis_names[0]
     n_dev = mesh.devices.size
     assert height % n_dev == 0, (height, n_dev)
@@ -206,7 +206,7 @@ def build_sharded_render_acc(ss: StaticScene, width: int, height: int,
                              env_map=None, textures=None) -> Callable:
     """Compile a sample-sharded AccPathTracer (4-BSDF) render over `mesh`.
 
-    `tri_bvh` (a `bvh.MeshAccel` or `bvh.BlockedTris`), `env_map` and
+    `tri_bvh` (from `bvh.build_mesh_engine`), `env_map` and
     `textures` are baked into the program as constants — XLA replicates
     them to every device, exactly what read-only render data wants."""
     from ..renderers.acc_pt import trace_bsdf_wavefront
@@ -226,9 +226,10 @@ def _build_sharded_pass(trace_fn: Callable, width: int, height: int,
     samples, where `it0` is the pass's global chunk-step offset (see
     `_linear_film`).  The host accumulates passes, posts previews, and
     snapshots the film — composing checkpoint/resume and progressive
-    preview with `--devices` (VERDICT r3 #5).  Summing whole passes keeps
-    resume bit-identical: pass results are deterministic in (seed, it0)
-    and the host adds them in pass order either way."""
+    preview with `--devices`.  Summing whole passes keeps
+    a resume equal to a straight run: pass results depend only on
+    (seed, it0), up to the order of the device's float sums, and the host
+    adds them in pass order either way."""
     axis = mesh.axis_names[0]
     n_dev = mesh.devices.size
     if shard == "pixels":
@@ -275,7 +276,7 @@ def render_multichip_resumable(
         fingerprint_arrays=(), screen=None, on_preview=None) -> np.ndarray:
     """Host-chunked sharded render with checkpoint/resume + progressive
     previews — the multi-device counterpart of
-    `renderers.simple_pt.render_progressive` (VERDICT r3 #5: a framework
+    `renderers.simple_pt.render_progressive` (a framework
     that adds distribution must carry its aux subsystems across it).
 
     The spp budget splits into `passes` equal passes (default: one per
@@ -283,7 +284,8 @@ def render_multichip_resumable(
     snapshotted to `checkpoint_path` and a gamma'd preview is posted to
     `screen` / `on_preview`.  Resume re-runs from the first missing pass
     with identical per-step PRNG keys, so an interrupted render finishes
-    BIT-IDENTICAL to a straight run (tested in tests/test_parallel.py).
+    equal to a straight run up to the float order of the cross-device sum
+    (tested in tests/test_parallel.py).
 
     Returns the gamma'd (H, W, 3) image, row 0 = BOTTOM (same contract as
     the other multichip entry points)."""

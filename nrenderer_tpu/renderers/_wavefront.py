@@ -7,7 +7,6 @@ accumulation, sqrt gamma — is identical (reference `renderTask`,
 the single implementation both renderers close over."""
 from __future__ import annotations
 
-import os
 from typing import Callable
 
 import jax
@@ -17,8 +16,6 @@ import numpy as np
 from ..ops.camera import CameraParams, shoot_v3
 from ..ops.sampling import uniform_circle
 from ..ops.compact import shift_pack_channels
-from ..ops.stream_compact import (stream_pack_channels, stream_rows_needed,
-                                  stream_unpack_channels)
 from ..ops.soa import V3, to_array
 
 
@@ -39,8 +36,7 @@ def stage_plan(depth: int):
 def build_staged_wavefront_fn(width: int, height: int, spp: int, chunk: int,
                               has_lens: bool, bounce_fn: Callable,
                               finish_fn: Callable, depth: int,
-                              linear: bool = False,
-                              peel_first: bool = False) -> Callable:
+                              linear: bool = False) -> Callable:
     """Film loop with WAVEFRONT COMPACTION: as rays die, the whole ray
     state (o, d, throughput, radiance, pixel id) is packed into smaller
     static buffers at scheduled bounce boundaries, so the per-bounce cost
@@ -70,14 +66,6 @@ def build_staged_wavefront_fn(width: int, height: int, spp: int, chunk: int,
     n_rays = n_pix * chunk
     n_steps = spp // chunk
     plan = stage_plan(depth)  # strictly increasing boundaries, all < depth
-    # "stream": RR packs ride the single-pass Pallas streaming compactor
-    # (ops/stream_compact.py) and radiance banking becomes an expansion
-    # CHAIN — results unpacked back to the pixel-aligned launch buffer
-    # (pure streaming) and reshape-reduced, replacing the per-element
-    # `.at[pix].add` scatter (~140M elem/s on TPU; the banks were 1.46 s
-    # of the 13.6 s bunny-5k render, r4 phase attribution).  "shift":
-    # the XLA log-shift pack + pix scatter-add (r3 engine).
-    pack_mode = os.environ.get("NR_WAVE_PACK", "stream")
     jj = np.tile(np.tile(np.arange(width, dtype=np.float32), height), chunk)
     ii = np.tile(np.repeat(np.arange(height, dtype=np.float32), width), chunk)
 
@@ -86,21 +74,6 @@ def build_staged_wavefront_fn(width: int, height: int, spp: int, chunk: int,
                textures=None):
         jjd = jnp.asarray(jj)
         iid = jnp.asarray(ii)
-
-        def bank_chain(fx, fy, fz, rad, chain):
-            """Accumulate the current buffer's radiance into the film by
-            unpacking it back through every stage pack (exact inverse
-            placement, misses contribute 0), then dense-reducing the
-            pixel-aligned result.  Dropped/dead rays lose nothing: banking
-            happens BEFORE each pack, on the buffer they still occupy."""
-            rx, ry, rz = rad.x, rad.y, rad.z
-            for keep_f, sp in reversed(chain):
-                rx, ry, rz = stream_unpack_channels(
-                    keep_f, (rx, ry, rz), (0.0, 0.0, 0.0), sp)
-            fx = fx + rx.reshape(-1, n_pix).sum(axis=0)
-            fy = fy + ry.reshape(-1, n_pix).sum(axis=0)
-            fz = fz + rz.reshape(-1, n_pix).sum(axis=0)
-            return fx, fy, fz
 
         def step(film, it):
             k = jax.random.fold_in(key, it)
@@ -121,7 +94,6 @@ def build_staged_wavefront_fn(width: int, height: int, spp: int, chunk: int,
             rad = V3(zeros, zeros, zeros)
             alive = jnp.ones((n_rays,), jnp.bool_)
             pix = None  # implicit (slot % n_pix) until the first pack
-            chain = []  # (keep_f32, StreamPacked) per stage, stream mode
             fx, fy, fz = film
 
             def bounce_scan(carry, b):
@@ -130,53 +102,9 @@ def build_staged_wavefront_fn(width: int, height: int, spp: int, chunk: int,
                 return bounce_fn(o, d, thr, rad, alive, kb, env_map,
                                  tri_bvh, textures), None
 
-            if peel_first and depth > 1:
-                # camera bounce peeled out of the stage-0 scan so it can
-                # run as the COHERENT variant (the mesh sweep's entry-cell
-                # sort is pure cost on pixel-ordered rays and would run at
-                # its largest window here); same fold_in(k_path, 0) stream,
-                # and sorted/unsorted sweeps are bitwise-identical per ray,
-                # so the film is unchanged
-                o, d, thr, rad, alive = bounce_fn(
-                    o, d, thr, rad, alive, jax.random.fold_in(k_path, 0),
-                    env_map, tri_bvh, textures, coherent=True)
-
             for si, (b0, shrink) in enumerate(plan):
                 b1 = plan[si + 1][0] if si + 1 < len(plan) else depth
-                if si == 0 and peel_first and depth > 1:
-                    b0 = 1
-                if si > 0 and pack_mode == "stream":
-                    # ---- bank via the expansion chain, then RR-pack ----
-                    n_cur = o.x.shape[0]
-                    cap = max(128, (n_rays // shrink) // 128 * 128)
-                    fx, fy, fz = bank_chain(fx, fy, fz, rad, chain)
-                    # overflow guard runs on the pack's ROW-claim
-                    # arithmetic (per-tile column maxima), not the raw
-                    # count — claims after thinning never exceed the
-                    # unthinned claims, so q scaled on claims is safe
-                    lanes_alive = stream_rows_needed(alive) * 128
-                    q = jnp.where(
-                        lanes_alive <= cap, 1.0,
-                        0.9 * cap
-                        / jnp.maximum(lanes_alive, 1).astype(jnp.float32))
-                    u = jax.random.uniform(
-                        jax.random.fold_in(k_path, 7000 + si), (n_cur,))
-                    keep = alive & (u < q)
-                    keep_f = keep.astype(jnp.float32)
-                    sp = stream_pack_channels(
-                        (o.x, o.y, o.z, d.x, d.y, d.z,
-                         thr.x, thr.y, thr.z, keep_f), cap, mask_from=9)
-                    ox, oy, oz, dx, dy, dz, tx, ty, tz, kf = sp.packed
-                    inv_q = 1.0 / q
-                    o = V3(ox, oy, oz)
-                    d = V3(dx, dy, dz)
-                    thr = V3(tx * inv_q, ty * inv_q, tz * inv_q)
-                    zc = jnp.zeros_like(kf)
-                    rad = V3(zc, zc, zc)
-                    # garbage slots carry 0 in the mask channel: dead
-                    alive = kf > 0.0
-                    chain.append((keep_f, sp))
-                elif si > 0:
+                if si > 0:
                     # ---- bank radiance, then RR-pack the alive rays ----
                     n_cur = o.x.shape[0]
                     cap = n_rays // shrink
@@ -202,9 +130,8 @@ def build_staged_wavefront_fn(width: int, height: int, spp: int, chunk: int,
                         jax.random.fold_in(k_path, 7000 + si), (n_cur,))
                     keep = alive & (u < q)
                     inv_q = 1.0 / q
-                    # gather-free log-shift pack (ops/compact): 10 state
-                    # channels move at streaming speed instead of TPU
-                    # per-element gather speed
+                    # log-shift pack (ops/compact) of the 10 state
+                    # channels
                     packed, _, n_keep = shift_pack_channels(
                         keep, (o.x, o.y, o.z, d.x, d.y, d.z,
                                thr.x, thr.y, thr.z, pix), cap)
@@ -222,9 +149,7 @@ def build_staged_wavefront_fn(width: int, height: int, spp: int, chunk: int,
                     jnp.arange(b0, b1, dtype=jnp.int32))
 
             rad = finish_fn(thr, rad, alive)
-            if pack_mode == "stream":
-                fx, fy, fz = bank_chain(fx, fy, fz, rad, chain)
-            elif pix is None:
+            if pix is None:
                 fx = fx + rad.x.reshape(-1, n_pix).sum(axis=0)
                 fy = fy + rad.y.reshape(-1, n_pix).sum(axis=0)
                 fz = fz + rad.z.reshape(-1, n_pix).sum(axis=0)

@@ -1,7 +1,7 @@
 """GeometryPreview: render-free scene/geometry preview.
 
 Headless analogue of the reference viewport's PREVIEW wireframe mode
-(`/root/reference/code/app/src/ui/views/ScreenView.cpp:11-52,224-306`): a
+(`code/app/src/ui/views/ScreenView.cpp:11-52,224-306`): a
 camera-matched GL wireframe with per-selection highlight colors shown
 before/without running a renderer, so the user can check framing and
 geometry placement instantly.  Without a GL surface the equivalent is a

@@ -6,10 +6,10 @@ epsilon 0.01, Phong/Lambert shading by material type {0: Lambertian,
 1: Phong} (`ray_cast/include/shaders/ShaderCreator.hpp:15-30`), clamp +
 sqrt gamma, and the bottom-up pixel write folded into a final flip.
 
-TPU-native design: the whole image is ONE jitted batch in component-SoA
-layout (ops/soa.py) — primary rays, the dense closest-hit, the shadow-ray
-pass, and branchless material shading all evaluate as (H*W)-wide ops on
-(8,128) vector tiles; there is no per-pixel loop."""
+Design: the whole image is ONE jitted batch in component-SoA layout
+(ops/soa.py) — primary rays, the dense closest-hit, the shadow-ray pass, and
+branchless material shading all evaluate as (H*W)-wide ops; there is no
+per-pixel loop."""
 from __future__ import annotations
 
 from functools import partial
@@ -135,9 +135,7 @@ def render_raycast(scene_arrays: SceneArrays, cam: CameraParams,
 class RayCastRenderer(RenderComponent):
     def render(self, scene: Scene) -> RenderResult:
         from ..server.registry import get_server
-        from ..utils.device_warm import warm_device_async
         from ..utils.timing import PhaseTimer
-        warm_device_async()  # claim the TPU concurrently with prep
         timer = PhaseTimer()
         w = scene.render_option.width
         h = scene.render_option.height

@@ -15,8 +15,8 @@ Lambertian sampling matches `shaders/Lambertian.cpp:15-46`: uniform hemisphere
 about the stored (unflipped) normal via the Onb, pdf = 1/(2 pi),
 BRDF = albedo / pi, so throughput *= 2 * albedo * cos.
 
-TPU-native design (vs the reference's 16 row-interleaved std::threads and
-bounded recursion):
+Design (vs the reference's 16 row-interleaved std::threads and bounded
+recursion), for the XLA wavefront engine:
 
   - recursion -> `lax.scan` over the bounce index with component-SoA path
     state ((N,) planes, see ops/soa.py) — no (N, 3) lane waste
@@ -54,6 +54,7 @@ from ..scene.arrays import SceneArrays, build_scene_arrays
 from ..scene.model import Scene
 from ..server.component import RenderComponent, RenderResult
 from ..server.registry import get_server, register_renderer
+from .engine import MEGAKERNEL, choose_engine
 
 
 def trace_diffuse_wavefront(ss: StaticScene, o: V3, d: V3, key, depth: int,
@@ -63,7 +64,7 @@ def trace_diffuse_wavefront(ss: StaticScene, o: V3, d: V3, key, depth: int,
     radiance.  `env_map` (traced (He,We,3) array) enables env-map misses.
 
     The bounce physics is the shared `ops.pt_core.diffuse_bounce`, also used
-    verbatim by the Pallas megakernel — the two engines differ only in how
+    verbatim by the GPU megakernel — the two engines differ only in how
     uniforms are drawn and where state lives."""
     n = o.x.shape[0]
     zeros = jnp.zeros((n,), o.x.dtype)
@@ -189,16 +190,11 @@ def render_progressive(scene_arrays, ss: StaticScene, cam, width, height,
             get_server().logger.log(
                 f"resumed at {spp_done}/{spp} spp from {checkpoint_path}")
 
-    use_pallas = (jax.default_backend() not in ("cpu",)
-                  and not has_lens
-                  and (not textures
-                       or os.environ.get("NR_TEX_KERNEL", "1") != "0")
-                  and os.environ.get("NR_ENGINE", "auto") != "xla")
-    if use_pallas:
+    if choose_engine(ss, mesh=False, has_lens=has_lens,
+                     textures=textures) == MEGAKERNEL:
         from ..ops.pt_pallas import render_pt_pallas_linear
-        fn = lambda cam, env, key, step: render_pt_pallas_linear(
-            ss, cam, width, height, chunk, depth, seed=seed * 100003 + step,
-            env_map=env if use_env else None, textures=textures)
+        fn = lambda cam, env, key, step: render_pt_pallas_linear(  # noqa: E731
+            ss, cam, width, height, chunk, depth, seed=seed * 100003 + step)
     else:
         fn = build_linear_chunk_fn(ss, width, height, depth, chunk,
                                    has_lens, use_env, textures=textures)
@@ -267,9 +263,6 @@ class SimplePathTracerRenderer(RenderComponent):
         self.preview_every = preview_every
 
     def render(self, scene: Scene) -> RenderResult:
-        # claim the TPU from the pool concurrently with prep + compiles
-        from ..utils.device_warm import warm_device_async
-        warm_device_async()
         # per-render phase stats, logged like the reference's per-thread
         # intersect timing (`SimplePathTracer.cpp:90-94`, SURVEY §5.1)
         from ..utils.timing import GLOBAL_TIMER, PhaseTimer
@@ -293,28 +286,14 @@ class SimplePathTracerRenderer(RenderComponent):
             rgba = np.concatenate(
                 [img, np.ones((h, w, 1), np.float32)], axis=2)
             return RenderResult(pixels=rgba, width=w, height=h)
-        # Engine: the Pallas megakernel on TPU (fastest; env-map misses run
-        # in-kernel via the binned gather + exact bounce-0 pass), XLA
-        # wavefront elsewhere.
-        engine = os.environ.get("NR_ENGINE", "auto")
-        # textured faces resolve in-kernel against binned (32, 128) texture
-        # tables (VERDICT r2 #4); NR_TEX_KERNEL=0 keeps them on the exact
-        # full-res XLA path
         textures = arrays.textures if ss.tri_uv else None
-        tex_kernel_ok = os.environ.get("NR_TEX_KERNEL", "1") != "0"
-        n_prims = len(ss.sph) + len(ss.pln) + len(ss.tri)
-        if engine == "auto":
-            engine = ("pallas" if jax.default_backend() not in ("cpu",)
-                      and (not textures or tex_kernel_ok)
-                      and n_prims > 0  # empty scene: megakernel refuses
-                      else "xla")
-        if engine == "pallas":
+        engine = choose_engine(ss, mesh=False, has_lens=has_lens,
+                               textures=textures)
+        if engine == MEGAKERNEL:
             from ..ops.pt_pallas import render_simple_pt_pallas
             with timer.phase(f"render[{engine}]"):
                 img = np.asarray(render_simple_pt_pallas(
-                    ss, cam, w, h, spp, depth, seed=self.seed,
-                    env_map=arrays.env_map if use_env else None,
-                    textures=textures))
+                    ss, cam, w, h, spp, depth, seed=self.seed))
         else:
             chunk = pick_chunk(w, h, spp)
             fn = get_render_fn(ss, w, h, spp, depth, chunk, has_lens,

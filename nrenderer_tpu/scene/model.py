@@ -1,6 +1,6 @@
 """Editable scene data model (host side).
 
-This is the TPU-native rebuild of the reference's scene contract
+This is the rebuild of the reference's scene contract
 (`code/include/scene/*.hpp` in civilizwa/nrenderer): plain Python dataclasses
 that the importers (`.scn` / `.obj`) populate and that `scene.arrays.build_scene_arrays`
 flattens into SoA jnp arrays for the jitted renderers.
@@ -259,7 +259,7 @@ class RenderOption:
     is deliberately NOT carried: no reference renderer reads it either, and
     shading dispatch in this rebuild (as in the reference's shipped
     shaders) is per-material `Material.type`, so a global shade switch has
-    no consumer to wire to (VERDICT r3 #10: removal with rationale)."""
+    no consumer to wire to."""
     width: int = 500
     height: int = 500
     depth: int = 20

@@ -1,6 +1,6 @@
 """Interactive scene editing over HTTP: the headless analogue of the
 reference's AssetView scene editor
-(`/root/reference/code/app/src/ui/views/AssetView.cpp:158-641`), which
+(`code/app/src/ui/views/AssetView.cpp:158-641`), which
 lets the user tweak camera / materials / entities / lights / render
 settings in an ImGui panel and re-render.
 
@@ -438,11 +438,12 @@ def _import_texture(scene: Scene, tdoc: Dict[str, Any], path: str) -> None:
     texture entries carry a file `path` that is decoded host-side."""
     if not isinstance(tdoc, dict) or "path" not in tdoc:
         raise EditError(f"{path}: a new texture needs a file 'path'")
-    from ..io.image import load_image
+    from ..io.image import ImageDecodeError, load_image
     fpath = str(tdoc["path"])
-    pixels = load_image(fpath)
-    if pixels is None:
-        raise EditError(f"{path}: cannot load image {fpath!r}")
+    try:
+        pixels = load_image(fpath)
+    except ImageDecodeError as exc:
+        raise EditError(f"{path}: cannot load image {fpath!r}") from exc
     scene.textures.append(Texture(name=str(tdoc.get("name", fpath)),
                                   pixels=pixels))
 

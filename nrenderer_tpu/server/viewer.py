@@ -1,5 +1,5 @@
 """Minimal live render viewer: the headless analogue of the reference's
-ScreenView (`/root/reference/code/app/src/ui/views/ScreenView.cpp:98-178`),
+ScreenView (`code/app/src/ui/views/ScreenView.cpp:98-178`),
 which polls `Screen::isUpdated()` every UI frame and blits the buffer into a
 GL texture.  Here a tiny stdlib HTTP server does the same over the network:
 

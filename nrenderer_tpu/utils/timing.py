@@ -81,7 +81,7 @@ GLOBAL_TIMER = PhaseTimer()
 @contextlib.contextmanager
 def profile_trace(log_dir: str):
     """jax.profiler trace span — the structured-tracing upgrade over the
-    reference's stdout prints (SURVEY.md §5.1 'TPU equivalent')."""
+    reference's stdout prints (SURVEY.md §5.1)."""
     import jax
     jax.profiler.start_trace(log_dir)
     try:

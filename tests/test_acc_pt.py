@@ -168,8 +168,8 @@ def test_matches_simple_pt_on_diffuse_scene(resource_dir):
 
 def test_acc_type_knob(resource_dir):
     """`acc_type` (reference Scene.hpp:23, stored-but-dead there) is live
-    (VERDICT r4 weak #6): 0 forces brute force, 1 = size heuristic,
-    2 forces the accelerated sweep; impossible brute-force requests are
+   : 0 forces brute force, 1 = size heuristic,
+    2 forces the mesh engine; impossible brute-force requests are
     refused with a log line, not a hung compile."""
     import nrenderer_tpu
     from nrenderer_tpu.io.obj import load_obj
@@ -193,15 +193,15 @@ def test_acc_type_knob(resource_dir):
         return np.asarray(r.pixels), msgs
 
     img1, log1 = render(1)  # 200 tris > threshold -> accelerated
-    assert "sweep over" in log1
+    assert "mesh engine over" in log1
     img0, log0 = render(0)  # forced brute force
-    assert "sweep over" not in log0
+    assert "mesh engine over" not in log0
     assert np.isfinite(img0).all()
     # same estimator, same seed: engines agree numerically
     np.testing.assert_allclose(img0, img1, atol=5e-5)
     # acc_type=0 on a huge pool is refused (would unroll 5k triangles)
     _, log_refuse = render(0, faces="bunny_5k_faces.obj")
-    assert "refused" in log_refuse and "sweep over" in log_refuse
+    assert "refused" in log_refuse and "mesh engine over" in log_refuse
 
 
 def test_acc_type_2_forces_accel(resource_dir):
@@ -217,4 +217,4 @@ def test_acc_type_2_forces_accel(resource_dir):
     get_server().logger.clear()
     AccPathTracerRenderer(seed=0).render(s)
     msgs = " | ".join(m.content for m in get_server().logger.get())
-    assert "sweep over" in msgs
+    assert "mesh engine over" in msgs

@@ -4,8 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nrenderer_tpu.ops.compact import (
-    pack_indices, shift_pack_channels, shift_unpack_channels)
+from nrenderer_tpu.ops.compact import pack_indices, shift_pack_channels
 
 
 @pytest.mark.parametrize("frac", [0.0, 0.05, 0.5, 1.0])
@@ -71,42 +70,6 @@ def test_shift_pack_matches_gather_pack(frac, n, cap):
     for got, want in zip(packed, ref):
         np.testing.assert_array_equal(np.asarray(got)[:v],
                                       np.asarray(want)[:v])
-
-
-@pytest.mark.parametrize("frac", [0.0, 0.05, 0.3, 1.0])
-@pytest.mark.parametrize("n,cap,use_ridx", [(1000, 256, True),
-                                            (1000, 256, False),
-                                            (4096, 4096, True),
-                                            (777, 64, True)])
-def test_shift_unpack_matches_scatter(frac, n, cap, use_ridx):
-    """pack -> transform -> shift_unpack == the scatter-back it replaces,
-    bit-exactly, including overflow truncation and miss fills."""
-    key = jax.random.PRNGKey(n + int(frac * 10))
-    mask = jax.random.uniform(key, (n,)) < frac
-    vals = jax.random.normal(jax.random.PRNGKey(1), (n,))
-
-    @jax.jit
-    def both(mask, vals):
-        packed, ridx, n_hit = shift_pack_channels(mask, (vals,), cap)
-        res = packed[0] * 2.0 + 1.0          # per-slot "sweep result"
-        res_i = (ridx + 3).astype(jnp.int32)  # an i32 result channel
-        want_f = jnp.full((n,), -5.0).at[ridx].set(
-            res, mode="drop", indices_are_sorted=True, unique_indices=True)
-        want_i = jnp.full((n,), 7, jnp.int32).at[ridx].set(
-            res_i, mode="drop", indices_are_sorted=True,
-            unique_indices=True)
-        got_f, got_i = shift_unpack_channels(
-            mask, (res, res_i),
-            (jnp.full((n,), -5.0), jnp.full((n,), 7, jnp.int32)),
-            ridx=ridx if use_ridx else None)
-        return want_f, want_i, got_f, got_i
-
-    want_f, want_i, got_f, got_i = both(mask, vals)
-    # the scatter writes hits only below cap; shift_unpack likewise only
-    # moves slots < n_hit — but with overflow (n_hit > cap) the scatter's
-    # ridx past the last slot is n (dropped) on BOTH sides
-    np.testing.assert_array_equal(np.asarray(got_f), np.asarray(want_f))
-    np.testing.assert_array_equal(np.asarray(got_i), np.asarray(want_i))
 
 
 def test_shift_pack_edge_positions():

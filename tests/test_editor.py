@@ -18,7 +18,9 @@ from nrenderer_tpu.scene.model import (AmbientType, PropertyType, Scene)
 from nrenderer_tpu.server.editor import (EditError, SceneEditor, apply_doc,
                                          scene_doc)
 
-RES = "/root/reference/resource"
+from nrenderer_tpu.resources import RESOURCE_DIR
+
+RES = str(RESOURCE_DIR)
 
 
 @pytest.fixture()

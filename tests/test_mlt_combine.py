@@ -3,7 +3,7 @@
 `_combine_ref` below is the round-2/3 implementation (per-L recomputation of
 all edge physics on the materialized combined path) kept verbatim as the
 ground truth; the shipped version factorizes per-edge physics into per-sample
-tables + an (s, t) connection grid (VERDICT r3 #3/#4).  Per-edge values are
+tables + an (s, t) connection grid.  Per-edge values are
 bit-identical by construction; the throughput product changes multiplication
 ORDER only, so outputs agree to f32 reassociation tolerance."""
 import numpy as np

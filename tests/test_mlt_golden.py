@@ -1,79 +1,81 @@
-"""MLT golden-image regression vs the reference's published render.
+"""MLT golden-image regression against the plain unbiased path tracer.
 
-`/root/reference/results/MLT.png` is a UI screenshot of the reference's
-500x500 / depth-20 / 16.8M-mutation MLT run (19573 s); the render panel is
-the fixed crop below.  Comparison is alignment-tolerant (downsample both
-to a small grid, like tests/test_golden.py) and BRIGHTNESS-NORMALIZED:
-the reference image is ~3.5x darker in linear radiance than an unbiased
-path-trace of its own scene, while our MLT lands within 14% of that
-ground truth — see docs/architecture.md divergence #9 for the full
-analysis.  Structure (wall colors, caustic cube glow, light quad) must
-correlate; absolute exposure must match only after mean-scaling.
-
-TPU reference-scale verification (500x500, 4096x1024 mutations): tone
-mean 0.489 vs 0.497 at 96x96 (resolution-independent), recorded in
-BENCH.md.
+The reference is a SimplePathTracer render of the same scene (unbiased,
+checked itself against the megakernel's plain reference in
+tests/test_golden.py), tone-mapped with MLT's own exposure curve
+`pow(1 - exp(-x), 1/2.2)` so both images live in one domain.  The top band
+holding the light quad is excluded: MinPathLength=3 removes the direct
+camera->light path from MLT (`PathContribution.hpp:13`).  Structure (wall
+colors, the caustic cube glow, shadows) must correlate; absolute exposure
+must match after mean-scaling, and within a wide band before it (two
+preserved REFQUIRKs keep MLT from matching exactly: emitted = 2x the scene
+radiance, `Metropolis.hpp:34`, and light-vert getColor returning emitted —
+docs/architecture.md divergence #9).
 """
 import numpy as np
 import pytest
 
-pytestmark = pytest.mark.slow  # ~10 min golden renders
+pytestmark = pytest.mark.slow  # ~10 min of CPU renders
 
 from nrenderer_tpu import load_scn
-from nrenderer_tpu.io.image import read_png
+from nrenderer_tpu.resources import RESOURCE_DIR
 
-MLT_SCREENSHOT = "/root/reference/results/MLT.png"
-RENDER_CROP = (slice(85, 585), slice(65, 562))  # the Result panel's image
+W = H = 64
+BAND = H // 6  # the light quad's rows
 
 
-def _down(a, size=32):
-    from PIL import Image
-    im = Image.fromarray((np.clip(a, 0, 1) * 255).astype(np.uint8))
-    return np.asarray(im.resize((size, size), Image.BILINEAR),
-                      np.float32) / 255.0
+def _down(a, size=16):
+    """Block means on a size x size grid (blocks differ by at most 1 px)."""
+    rows = np.array_split(np.arange(a.shape[0]), size)
+    cols = np.array_split(np.arange(a.shape[1]), size)
+    return np.array([[a[r][:, c].mean(axis=(0, 1)) for c in cols]
+                     for r in rows])
 
 
 @pytest.fixture(scope="module")
 def images():
     from nrenderer_tpu.renderers.mlt import render_mlt
-    ref = read_png(MLT_SCREENSHOT)[RENDER_CROP]
-    scene = load_scn("/root/reference/resource/Metropolis.scn")
-    # depth 8 keeps the unrolled combo compile CPU-affordable (measured:
-    # corr 0.82, normalized RMSE 0.085, mean 0.46 at this budget)
-    scene.render_option.width = 64
-    scene.render_option.height = 64
-    scene.render_option.depth = 8
-    img = render_mlt(scene, chains=384, mutations=64, n_init=3072,
-                     seed=0)[..., :3]
-    return _down(img), _down(ref)
+    from nrenderer_tpu.renderers.simple_pt import SimplePathTracerRenderer
+
+    def scene():
+        s = load_scn(str(RESOURCE_DIR / "Metropolis.scn"))
+        s.render_option.width = W
+        s.render_option.height = H
+        s.render_option.depth = 8
+        return s
+    s = scene()
+    s.render_option.samples_per_pixel = 256
+    pt = SimplePathTracerRenderer(seed=0).render(s).pixels[..., :3]
+    ref = (1.0 - np.exp(-pt.astype(np.float64) ** 2)) ** (1 / 2.2)
+    img = render_mlt(scene(), chains=384, mutations=64, n_init=3072,
+                     seed=0)[..., :3].astype(np.float64)
+    return _down(img[BAND:BAND + 48]), _down(ref[BAND:BAND + 48])
 
 
 def test_mlt_structure_matches_reference(images):
     ours, ref = images
     corr = np.corrcoef(ours.reshape(-1), ref.reshape(-1))[0, 1]
-    assert corr > 0.7, corr  # 0.85 measured at 96x96/512x96; CPU budget
+    assert corr > 0.7, corr
 
 
 def test_mlt_normalized_rmse(images):
     ours, ref = images
-    # exposure-normalize (deliberate brightness divergence, docs #9)
     scaled = ours * (ref.mean() / max(ours.mean(), 1e-6))
     rmse = float(np.sqrt(((scaled - ref) ** 2).mean()))
-    assert rmse < 0.16, rmse  # ~0.10 measured at CI budget
+    assert rmse < 0.16, rmse
 
 
 def test_mlt_brightness_tracks_unbiased_pt(images):
-    """Our MLT's tone-mapped brightness tracks the unbiased PT ground
-    truth of this scene — 0.47 at the converged TPU budget (the reference
-    image sits at 0.30; docs #9).  Band is wide for the CI chain budget."""
-    ours, _ = images
-    assert 0.35 < ours.mean() < 0.62, ours.mean()
+    """Tone-mapped brightness tracks the unbiased PT through the same
+    curve; the band is wide for the CI chain budget."""
+    ours, ref = images
+    assert 0.6 < ours.mean() / ref.mean() < 1.6, (ours.mean(), ref.mean())
 
 
 def test_mlt_linear_radiance_vs_unbiased_pt():
-    """VERDICT r3 #7: the ground-truth cross-check asserted as a test.
-    Render `Metropolis.scn` with SimplePathTracer (unbiased, golden-tested
-    against `rdm_10.png`) and assert our MLT's LINEAR radiance tracks it.
+    """the ground-truth cross-check asserted as a test.
+    Render `Metropolis.scn` with SimplePathTracer (unbiased) and assert our
+    MLT's LINEAR radiance tracks it.
 
     The tone map `pow(1 - exp(-x*s), 1/2.2)` is inverted to recover the
     per-pixel linear estimate.  The top band containing the light quad is
@@ -96,7 +98,7 @@ def test_mlt_linear_radiance_vs_unbiased_pt():
     DEPTH = 8
 
     def scene():
-        s = load_scn("/root/reference/resource/Metropolis.scn")
+        s = load_scn(str(RESOURCE_DIR / "Metropolis.scn"))
         s.render_option.width = W
         s.render_option.height = H
         s.render_option.depth = DEPTH
@@ -127,10 +129,10 @@ def test_mlt_linear_radiance_vs_unbiased_pt():
 
 
 def test_mlt_mesh_scene_vs_unbiased_pt():
-    """MLT mesh capability (VERDICT r4 missing #3 / next #3): the reference
+    """MLT mesh capability: the reference
     MLT brute-forces ANY scene, mesh-expanded triangles included
     (`Metropolis.cpp:135-166`); here triangle pools past MLT_BVH_THRESHOLD
-    route through the blocked Pallas sweep, so a bunny mesh + area light
+    route through the mesh engine, so a bunny mesh + area light
     scene must compile AND track the unbiased path-trace of the same
     scene.  Ground truth is AccPathTracer (identical estimator to
     SimplePathTracer on this all-Lambertian scene — their agreement is
@@ -146,8 +148,8 @@ def test_mlt_mesh_scene_vs_unbiased_pt():
     DEPTH = 6
 
     def scene():
-        s = load_scn("/root/reference/resource/Metropolis.scn")
-        load_obj("/root/reference/resource/obj/bunny_200_faces.obj", s,
+        s = load_scn(str(RESOURCE_DIR / "Metropolis.scn"))
+        load_obj(str(RESOURCE_DIR / "obj" / "bunny_200_faces.obj"), s,
                  material=0)
         m = s.models[-1]
         m.scale = (400.0,) * 3

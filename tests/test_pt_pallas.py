@@ -1,324 +1,232 @@
-"""Pallas megakernel CI coverage (interpret mode on CPU).
-
-The kernel shares its physics with the XLA engine (ops/pt_core); these tests
-run it through the Mosaic interpreter and check statistical agreement with
-the XLA wavefront (different RNG streams -> compare means, not pixels)."""
+"""GPU megakernel coverage on the CPU: the Triton-route kernel in interpret
+mode against its plain reference, its wrapper's shapes and padding, its
+lowering for CUDA, and the engine choice.  The compiled kernel runs in the
+`gpu`-marked test on the card."""
 import numpy as np
 import pytest
 
-import jax
-from jax.experimental.pallas import tpu as pltpu
+import jax.numpy as jnp
 
-from nrenderer_tpu import build_scene_arrays, load_scn
+from nrenderer_tpu import Camera, Scene, build_scene_arrays, load_scn
+from nrenderer_tpu.ops import pt_pallas
 from nrenderer_tpu.ops.camera import make_camera
 from nrenderer_tpu.ops.intersect import make_static_scene
-from nrenderer_tpu.ops.sampling import make_base_key
+from nrenderer_tpu.renderers.engine import MEGAKERNEL, XLA, choose_engine
 
 
-@pytest.fixture(scope="module")
-def setup(resource_dir):
-    scene = load_scn(str(resource_dir / "path_tracing_cornel.scn"))
+def _setup(resource_dir, name):
+    scene = load_scn(str(resource_dir / name))
     arr = build_scene_arrays(scene)
     return arr, make_static_scene(arr), make_camera(scene.camera)
 
 
-def test_pallas_kernel_matches_xla_engine(setup):
-    arr, ss, cam = setup
-    w = h = 16
-    spp, depth = 96, 3
-    from nrenderer_tpu.ops.pt_pallas import render_simple_pt_pallas
-    with pltpu.force_tpu_interpret_mode():
-        img_p = np.asarray(render_simple_pt_pallas(ss, cam, w, h, spp, depth,
-                                                   seed=0))
-    from nrenderer_tpu.renderers.simple_pt import build_render_fn, pick_chunk
-    chunk = pick_chunk(w, h, spp)
-    fn = build_render_fn(ss, w, h, spp, depth, chunk, False, False)
-    img_x = np.asarray(fn(cam, arr.env_map, make_base_key(0, "threefry2x32")))
-    assert img_p.shape == img_x.shape == (h, w, 3)
-    assert np.isfinite(img_p).all()
-    # same estimator, independent RNG: means agree within MC noise
-    assert abs(img_p.mean() - img_x.mean()) < 0.08
-    # spatial structure agrees (tiny film + few spp -> noisy realizations;
-    # 0.7 measured ~0.75 at 96 spp)
-    corr = np.corrcoef(img_p.reshape(-1), img_x.reshape(-1))[0, 1]
-    assert corr > 0.65
+@pytest.fixture(scope="module")
+def cornel(resource_dir):
+    return _setup(resource_dir, "path_tracing_cornel.scn")
 
 
-@pytest.mark.slow
-def test_pallas_bsdf_kernel_matches_xla_engine(setup):
-    """The 4-BSDF megakernel (glass + conductor dispatch) agrees with the
-    XLA wavefront statistically — same estimator, independent RNG."""
-    _, _, _ = setup
-    scene = load_scn("/root/reference/resource/pt_glass.scn")
-    arr = build_scene_arrays(scene)
-    ss = make_static_scene(arr)
-    cam = make_camera(scene.camera)
-    from nrenderer_tpu.ops.pt_pallas import render_bsdf_pt_pallas
-    w = h = 16
-    spp, depth = 96, 4
-    with pltpu.force_tpu_interpret_mode():
-        img_p = np.asarray(render_bsdf_pt_pallas(ss, cam, w, h, spp, depth,
-                                                 seed=0))
-    assert np.isfinite(img_p).all()
-    assert img_p.max() > 0.05
-    from nrenderer_tpu.renderers.acc_pt import build_render_fn
-    fn = build_render_fn(ss, w, h, spp, depth, 4, False, False)
-    img_x = np.asarray(fn(cam, arr.env_map, make_base_key(0), None))
-    assert abs(img_p.mean() - img_x.mean()) < 0.08
-    corr = np.corrcoef(img_p.reshape(-1), img_x.reshape(-1))[0, 1]
-    assert corr > 0.65  # specular paths are noisier than diffuse
+@pytest.fixture(scope="module")
+def glass(resource_dir):
+    return _setup(resource_dir, "pt_glass.scn")
 
 
-def _mesh_test_scene(n_faces: int = 200):
-    """Bunny mesh in a lit box-ish scene for the in-kernel sweep tests."""
-    from nrenderer_tpu import load_obj
-    from nrenderer_tpu.scene.model import (
-        AreaLight, Material, Property, PropertyType)
-
-    s = load_obj(f"/root/reference/resource/obj/bunny_{n_faces}_faces.obj")
-    s.models[0].scale = (600.0, 600.0, 600.0)
-    s.models[0].translation = (40.0, -305.0, 920.0)
-    s.mesh_buffer[0].material = 0
-    m = Material(name="W", type=0)
-    m.register_property(Property("diffuseColor", PropertyType.RGB,
-                                 (0.7, 0.7, 0.7)))
-    s.materials.append(m)
-    s.area_light_buffer.append(AreaLight(position=(-200.0, 300.0, 700.0),
-                                         u=(400.0, 0.0, 0.0),
-                                         v=(0.0, 0.0, 400.0),
-                                         radiance=(3.0, 3.0, 3.0)))
-    s.camera.position = (0.0, 0.0, -500.0)
-    return s
+@pytest.mark.parametrize("bsdf", [False, True], ids=["diffuse", "bsdf"])
+def test_kernel_matches_plain_reference_per_pixel(cornel, glass, bsdf):
+    """Same estimator, same hash draws: the interpreted kernel and the
+    whole-film jnp reference agree pixel by pixel.  20 x 13 = 260 pixels
+    is not a multiple of BLOCK, so the padded last block is covered."""
+    _, ss, cam = glass if bsdf else cornel
+    w, h, spp, depth = 20, 13, 3, 4
+    k = np.asarray(pt_pallas.render_pt_pallas_linear(
+        ss, cam, w, h, spp, depth, seed=7, bsdf=bsdf, interpret=True))
+    r = np.asarray(pt_pallas.render_reference_linear(
+        ss, cam, w, h, spp, depth, seed=7, bsdf=bsdf))
+    assert k.shape == r.shape == (w * h, 3)
+    assert np.isfinite(k).all() and k.max() > 0.0
+    np.testing.assert_allclose(k, r, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.slow
-def test_pallas_inkernel_mesh_matches_brute_force():
-    """The megakernel with the mesh sweep folded into its bounce loop
-    (VERDICT r2 #2) must match the SAME kernel intersecting the triangles
-    as unrolled dense prims: same hash RNG, same estimator, same sampling
-    order -> per-pixel agreement up to float reassociation."""
-    from nrenderer_tpu.ops.bvh import build_mesh_accel
-    from nrenderer_tpu.ops.pt_core import make_mat_channels
-    from nrenderer_tpu.ops.pt_pallas import render_bsdf_pt_pallas
-
-    s = _mesh_test_scene(200)
-    arr = build_scene_arrays(s)
-    ss = make_static_scene(arr)
-    cam = make_camera(s.camera)
-    ma = build_mesh_accel(arr, make_mat_channels(ss))
-    w = h = 16
-    spp, depth = 2, 2
-    with pltpu.force_tpu_interpret_mode():
-        img_mesh = np.asarray(render_bsdf_pt_pallas(
-            ss, cam, w, h, spp, depth, seed=0, mesh_accel=ma))
-        img_brute = np.asarray(render_bsdf_pt_pallas(
-            ss, cam, w, h, spp, depth, seed=0))
-    assert np.isfinite(img_mesh).all()
-    assert img_mesh.max() > 0.01
-    np.testing.assert_allclose(img_mesh, img_brute, atol=2e-3)
+@pytest.mark.parametrize("w,h", [(5, 7), (16, 8), (17, 9)])
+def test_wrapper_shapes_and_padding(cornel, w, h):
+    """Films smaller than, equal to and just past one block."""
+    _, ss, cam = cornel
+    lin = pt_pallas.render_pt_pallas_linear(ss, cam, w, h, 1, 2, seed=1,
+                                            interpret=True)
+    assert lin.shape == (w * h, 3)
+    img = pt_pallas.render_simple_pt_pallas(ss, cam, w, h, 1, 2, seed=1,
+                                            interpret=True)
+    assert img.shape == (h, w, 3)
+    np.testing.assert_allclose(np.asarray(img).reshape(-1, 3),
+                               np.sqrt(np.maximum(np.asarray(lin), 0.0)),
+                               rtol=1e-6)
 
 
-def _lit_textured_quad(tmp_path, n: int = 1):
-    """Textured quad scene (left-red / right-green map), n x n subdivided,
-    with an area light and a head-on camera (borrowed from
-    tests/test_texture.py)."""
-    from nrenderer_tpu import load_obj
-    from nrenderer_tpu.io.image import write_png
-    from nrenderer_tpu.scene.model import AreaLight
-
-    img = np.zeros((8, 8, 3), np.float32)
-    img[:, :4] = (1.0, 0.0, 0.0)
-    img[:, 4:] = (0.0, 1.0, 0.0)
-    write_png(str(tmp_path / "tex.png"), img)
-    (tmp_path / "q.mtl").write_text("newmtl m\nKd 1 1 1\nmap_Kd tex.png\n")
-    verts, uvs, faces = [], [], []
-    for j in range(n + 1):
-        for i in range(n + 1):
-            verts.append((i / n * 2 - 1, j / n * 2 - 1, 0.0))
-            uvs.append((i / n, j / n))
-    for j in range(n):
-        for i in range(n):
-            a = j * (n + 1) + i + 1
-            b, c_, d_ = a + 1, a + n + 2, a + n + 1
-            faces.append((a, b, c_))
-            faces.append((a, c_, d_))
-    lines = ["mtllib q.mtl"]
-    lines += [f"v {x} {y} {z}" for x, y, z in verts]
-    lines += [f"vt {u} {v}" for u, v in uvs]
-    lines.append("usemtl m")
-    lines += [f"f {a}/{a} {b}/{b} {c}/{c}" for a, b, c in faces]
-    (tmp_path / "q.obj").write_text("\n".join(lines) + "\n")
-    scene = load_obj(str(tmp_path / "q.obj"))
-    scene.materials[0].type = 0
-    scene.area_light_buffer.append(AreaLight(
-        position=(-2.0, 2.5, 2.0), u=(4.0, 0.0, 0.0), v=(0.0, 0.0, 2.0),
-        radiance=(6.0, 6.0, 6.0)))
-    scene.camera.position = (0.0, 0.0, 4.0)
-    scene.camera.look_at = (0.0, 0.0, 0.0)
-    return scene
+def test_seeds_give_independent_passes(cornel):
+    _, ss, cam = cornel
+    a = np.asarray(pt_pallas.render_reference_linear(ss, cam, 8, 8, 2, 3,
+                                                     seed=1))
+    b = np.asarray(pt_pallas.render_reference_linear(ss, cam, 8, 8, 2, 3,
+                                                     seed=1))
+    c = np.asarray(pt_pallas.render_reference_linear(ss, cam, 8, 8, 2, 3,
+                                                     seed=2))
+    np.testing.assert_array_equal(a, b)
+    assert not np.allclose(a, c)
 
 
-def test_pallas_textures_dense(tmp_path):
-    """In-kernel binned texture resolve on the dense (unrolled) path:
-    left half red-dominant, right half green-dominant (VERDICT r2 #4)."""
-    from nrenderer_tpu.ops.pt_pallas import render_simple_pt_pallas
-
-    scene = _lit_textured_quad(tmp_path, n=1)
-    arr = build_scene_arrays(scene)
-    ss = make_static_scene(arr)
-    cam = make_camera(scene.camera)
-    w = h = 16
-    with pltpu.force_tpu_interpret_mode():
-        img = np.asarray(render_simple_pt_pallas(
-            ss, cam, w, h, 8, 3, seed=0, textures=arr.textures))
-    img = img[::-1]
-    assert np.isfinite(img).all()
-    left = img[4:12, 2:7]
-    right = img[4:12, 9:14]
-    assert left[..., 0].mean() > 2.0 * left[..., 1].mean()
-    assert right[..., 1].mean() > 2.0 * right[..., 0].mean()
+def test_empty_scene_is_refused():
+    ss = make_static_scene(build_scene_arrays(Scene()))
+    cam = make_camera(Camera())
+    with pytest.raises(ValueError, match="at least one primitive"):
+        pt_pallas.render_pt_pallas_linear(ss, cam, 4, 4, 1, 1,
+                                          interpret=True)
 
 
-@pytest.mark.slow
-def test_pallas_textures_through_mesh_sweep(tmp_path):
-    """UVs interpolated DURING the in-kernel mesh sweep + binned texel
-    resolve: the 128-face textured grid stays red/green through the
-    megakernel mesh path (VERDICT r2 #4 'carry (u,v,tex) through
-    _pt_kernel and _sweep_kernel')."""
-    from nrenderer_tpu.ops.bvh import build_mesh_accel
-    from nrenderer_tpu.ops.pt_core import make_mat_channels
-    from nrenderer_tpu.ops.pt_pallas import render_bsdf_pt_pallas
-
-    scene = _lit_textured_quad(tmp_path, n=8)
-    arr = build_scene_arrays(scene)
-    ss = make_static_scene(arr)
-    cam = make_camera(scene.camera)
-    ma = build_mesh_accel(arr, make_mat_channels(ss))
-    assert ma.bt.tex is not None
-    w = h = 16
-    with pltpu.force_tpu_interpret_mode():
-        img = np.asarray(render_bsdf_pt_pallas(
-            ss, cam, w, h, 4, 2, seed=0, mesh_accel=ma,
-            textures=arr.textures))
-    img = img[::-1]
-    assert np.isfinite(img).all()
-    left = img[4:12, 2:7]
-    right = img[4:12, 9:14]
-    assert left[..., 0].mean() > 2.0 * left[..., 1].mean()
-    assert right[..., 1].mean() > 2.0 * right[..., 0].mean()
-
-
-def test_bin_env_map_identity_and_downsample():
-    """(rows, lanes)-sized maps pass through exactly; larger maps bin to
-    texel means."""
-    from nrenderer_tpu.ops.env import bin_env_map
-
-    rng = np.random.default_rng(0)
-    e = rng.random((32, 128, 3)).astype(np.float32)
-    t = bin_env_map(e, rows=32, lanes=128)
-    assert t.shape == (3, 32, 128)
-    assert np.allclose(t, e.transpose(2, 0, 1), atol=1e-6)
-
-    big = rng.random((64, 256, 3)).astype(np.float32)
-    t2 = bin_env_map(big, rows=32, lanes=128)
-    # each bin = mean of its 2x2 source block
-    blk = big.reshape(32, 2, 128, 2, 3).mean(axis=(1, 3))
-    assert np.allclose(t2, blk.transpose(2, 0, 1), atol=1e-5)
-
-
-def test_pallas_env_matches_xla_engine():
-    """Env-map misses through the kernel (binned gather + exact bounce-0
-    pass) vs the XLA wavefront.  The synthetic env is exactly (32, 128) so
-    the kernel's bin table equals the map and both engines compute the same
-    estimator (different RNG streams -> compare statistics)."""
-    from nrenderer_tpu.ops.pt_pallas import render_bsdf_pt_pallas
-    from nrenderer_tpu.ops.sampling import make_base_key
-    from nrenderer_tpu.renderers.acc_pt import build_render_fn
-    from nrenderer_tpu.scene.model import AmbientType, Texture
-
-    scene = load_scn("/root/reference/resource/env_map_spheres.scn")
-    he, we = 32, 128
-    yy, xx = np.meshgrid(np.arange(he), np.arange(we), indexing="ij")
-    px = np.stack([0.2 + 0.8 * xx / we, 0.1 + 0.6 * yy / he,
-                   0.5 + 0.5 * np.sin(xx / we * 6.28)],
-                  axis=-1).astype(np.float32)
-    scene.ambient.environment_map = len(scene.textures)
-    scene.textures.append(Texture(name="env", pixels=px))
-    scene.ambient.type = AmbientType.ENVIRONMENT_MAP
-
-    arr = build_scene_arrays(scene)
-    ss = make_static_scene(arr)
-    cam = make_camera(scene.camera)
+def test_reference_matches_xla_wavefront_statistically(cornel):
+    """The hash-RNG estimator and the jax.random XLA wavefront are two
+    independent realisations of one estimator: their image means agree
+    within 3 sigma of the Monte Carlo error."""
+    arr, ss, cam = cornel
     w = h = 16
     spp, depth = 64, 4
-
-    fn = build_render_fn(ss, w, h, spp, depth, 4, False, True)
-    img_x = np.asarray(fn(cam, arr.env_map, make_base_key(0), None))
-    with pltpu.force_tpu_interpret_mode():
-        img_p = np.asarray(render_bsdf_pt_pallas(
-            ss, cam, w, h, spp, depth, seed=0, env_map=arr.env_map))
-    assert np.isfinite(img_p).all()
-    assert abs(img_p.mean() - img_x.mean()) < 0.08
-    corr = np.corrcoef(img_p.reshape(-1), img_x.reshape(-1))[0, 1]
-    assert corr > 0.9  # measured 0.999
-
-
-def test_env_exact_patch_matches_xla_primary(monkeypatch):
-    """The in-kernel exact bounce-0 env path (per-pixel native-res PxP
-    windows, lane-aligned selects) must reproduce the XLA primary pass
-    BIT-EXACTLY: both read the same native texel for the same hash-RNG
-    jittered ray, so the only tolerance needed is the kernel's polynomial
-    atan2 (~1e-5 rad, far below a texel at this map size)."""
-    from nrenderer_tpu.ops import pt_pallas
-    from nrenderer_tpu.scene.model import AmbientType, Texture
-
-    scene = load_scn("/root/reference/resource/env_map_spheres.scn")
-    rng = np.random.default_rng(0)
-    env = rng.uniform(0.0, 2.0, (64, 128, 3)).astype(np.float32)
-    scene.ambient.environment_map = len(scene.textures)
-    scene.textures.append(Texture(name="env", pixels=env))
-    scene.ambient.type = AmbientType.ENVIRONMENT_MAP
-    arr = build_scene_arrays(scene)
-    ss = make_static_scene(arr)
-    cam = make_camera(scene.camera)
-    w = h = 32
-    spp, depth = 4, 3
-
-    ct = pt_pallas._camera_tuple(cam)
-    key, _ = pt_pallas._env_exact_args(arr.env_map, ct, w, h)
-    assert key is not None, "patch build fell back; footprint check failed"
-
-    with pltpu.force_tpu_interpret_mode():
-        img_exact = np.asarray(pt_pallas.render_bsdf_pt_pallas(
-            ss, cam, w, h, spp, depth, seed=3, env_map=arr.env_map))
-
-    monkeypatch.setenv("NR_ENV_EXACT0", "0")
-    pt_pallas._ENV_PATCH_CACHE.clear()
-    pt_pallas._build_pallas_pt.cache_clear()
-    with pltpu.force_tpu_interpret_mode():
-        img_fb = np.asarray(pt_pallas.render_bsdf_pt_pallas(
-            ss, cam, w, h, spp, depth, seed=3, env_map=arr.env_map))
-    pt_pallas._ENV_PATCH_CACHE.clear()
-    pt_pallas._build_pallas_pt.cache_clear()
-
-    assert np.abs(img_exact - img_fb).max() < 5e-3  # measured 0.0
+    from nrenderer_tpu.ops.sampling import make_base_key
+    from nrenderer_tpu.renderers.simple_pt import build_linear_chunk_fn
+    ref = np.asarray(pt_pallas.render_reference_linear(
+        ss, cam, w, h, spp, depth, seed=0)) / spp
+    fn = build_linear_chunk_fn(ss, w, h, depth, spp, False, False)
+    xla = np.asarray(fn(cam, arr.env_map, make_base_key(0), 0)) / spp
+    # per-pixel error of a spp-sample mean, from 4 independent passes
+    n = 4
+    passes = np.stack([np.asarray(pt_pallas.render_reference_linear(
+        ss, cam, w, h, spp // n, depth, seed=s)) / (spp // n)
+        for s in range(1, n + 1)])
+    sigma_px = passes.std(axis=0, ddof=1) / np.sqrt(n)
+    sigma_mean = np.sqrt((sigma_px ** 2).sum()) / sigma_px.size
+    diff = abs(ref.mean() - xla.mean())
+    assert diff < 3.0 * np.sqrt(2.0) * sigma_mean, (diff, sigma_mean)
 
 
-def test_megakernel_refuses_empty_scene():
-    """A materials-only scene (stock conductors.scn ships no geometry)
-    constant-folds the whole bounce loop and crashes Mosaic layout
-    inference on real TPU — the megakernel must refuse it with a real
-    error (the renderers route such scenes to the XLA wavefront)."""
-    import pytest
-    from nrenderer_tpu import load_scn, build_scene_arrays
-    from nrenderer_tpu.ops.camera import make_camera
-    from nrenderer_tpu.ops.intersect import make_static_scene
-    from nrenderer_tpu.ops import pt_pallas
+@pytest.mark.parametrize("bsdf", [False, True], ids=["diffuse", "bsdf"])
+def test_kernel_lowers_for_cuda(cornel, glass, bsdf):
+    """The kernel at the north-star width lowers through Pallas' Triton
+    route for CUDA: every primitive it uses has a Triton lowering.  (The
+    GPU compiler itself runs only on the card.)"""
+    _, ss, cam = glass if bsdf else cornel
+    run = pt_pallas._build_kernel(
+        pt_pallas._hashable_static_scene(ss), pt_pallas._camera_tuple(cam),
+        512, 512, 64, 20, pt_pallas.scene_epsilon(ss), bsdf, False,
+        (pt_pallas.BLOCK, pt_pallas.NUM_WARPS, pt_pallas.NUM_STAGES))
+    lowered = run.trace(jnp.asarray([0], jnp.int32)).lower(
+        lowering_platforms=("cuda",))
+    assert "triton" in lowered.as_text().lower()
 
-    scene = load_scn("/root/reference/resource/conductors.scn")
-    arr = build_scene_arrays(scene)
-    ss = make_static_scene(arr)
-    cam = make_camera(scene.camera)
-    assert not ss.sph and not ss.tri and not ss.pln
-    with pytest.raises(ValueError, match="at least one primitive"):
-        pt_pallas.render_bsdf_pt_pallas(ss, cam, 16, 16, 2, 2, seed=0)
+
+class _Prims:
+    """The StaticScene fields the engine choice reads."""
+
+    def __init__(self, n_sph=1, ambient_type=0):
+        self.sph = [(0.0, 0.0, 0.0, 1.0, 0)] * n_sph
+        self.tri, self.pln = [], []
+        self.ambient_type = ambient_type
+
+
+@pytest.mark.parametrize("platform,case,expected", [
+    ("gpu", "dense", MEGAKERNEL),
+    ("cpu", "dense", XLA),
+    ("gpu", "mesh", XLA),
+    ("gpu", "lens", XLA),
+    ("gpu", "textures", XLA),
+    ("gpu", "env", XLA),
+    ("gpu", "empty", XLA),
+])
+def test_engine_choice(platform, case, expected):
+    ss = _Prims(n_sph=0 if case == "empty" else 1,
+                ambient_type=1 if case == "env" else 0)
+    got = choose_engine(
+        ss, mesh=case == "mesh", has_lens=case == "lens",
+        textures=(np.zeros((2, 2, 3)),) if case == "textures" else None,
+        platform=platform)
+    assert got == expected
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bsdf", [False, True], ids=["diffuse", "bsdf"])
+def test_compiled_kernel_matches_reference_on_card(gpu, cornel, glass, bsdf):
+    """On the card: the compiled kernel against the plain reference at a
+    real width.  FMA contraction can flip a rare hit or roulette branch,
+    so the bound is on the mean and on the share of outlying pixels."""
+    _, ss, cam = glass if bsdf else cornel
+    w = h = 256
+    spp, depth = 16, 20
+    k = np.asarray(pt_pallas.render_pt_pallas_linear(
+        ss, cam, w, h, spp, depth, seed=3, bsdf=bsdf)) / spp
+    r = np.asarray(pt_pallas.render_reference_linear(
+        ss, cam, w, h, spp, depth, seed=3, bsdf=bsdf)) / spp
+    d = np.abs(k - r)
+    assert d.mean() <= 1e-4
+    assert (d.max(axis=-1) > 1e-2).mean() <= 1e-3
+
+
+@pytest.fixture
+def megakernel_on_cpu(monkeypatch):
+    """Route the renderers' GPU branch to the interpreted megakernel, so
+    their wiring (engine choice, seeds, orientation, checkpoints) runs on
+    the CPU."""
+    from nrenderer_tpu.renderers import acc_pt, simple_pt
+    for mod in (acc_pt, simple_pt):
+        monkeypatch.setattr(mod, "choose_engine",
+                            lambda *a, **k: MEGAKERNEL)
+    kernel = pt_pallas.render_pt_pallas_linear
+    monkeypatch.setattr(pt_pallas, "render_pt_pallas_linear",
+                        lambda *a, **k: kernel(*a, **{**k, "interpret": True}))
+
+
+def _expected_image(ss, cam, w, h, spp, depth, seed, bsdf):
+    """The renderers' contract: sqrt-gamma of the linear film, row 0 = top,
+    clipped to [0, 1]."""
+    lin = np.asarray(pt_pallas.render_reference_linear(
+        ss, cam, w, h, spp, depth, seed=seed, bsdf=bsdf)) / spp
+    img = np.sqrt(np.maximum(lin, 0.0)).reshape(h, w, 3)[::-1]
+    return np.clip(img, 0.0, 1.0)
+
+
+@pytest.mark.parametrize("renderer,scene,bsdf", [
+    ("SimplePathTracer", "path_tracing_cornel.scn", False),
+    ("AccPathTracer", "pt_glass.scn", True),
+])
+def test_renderer_megakernel_branch(megakernel_on_cpu, resource_dir,
+                                    renderer, scene, bsdf):
+    """A renderer that picks the megakernel returns the kernel's film, the
+    right way up, at its own seed."""
+    import nrenderer_tpu
+    from nrenderer_tpu.server.manager import ComponentManager
+    nrenderer_tpu._register_builtin_renderers()
+    s = load_scn(str(resource_dir / scene))
+    w, h, spp, depth = 12, 10, 2, 3
+    ro = s.render_option
+    ro.width, ro.height, ro.samples_per_pixel, ro.depth = w, h, spp, depth
+    mgr = ComponentManager()
+    mgr.exec(renderer, s)
+    got = np.asarray(mgr.wait(timeout=600).pixels)[..., :3]
+    arr = build_scene_arrays(s)
+    want = _expected_image(make_static_scene(arr), make_camera(s.camera),
+                           w, h, spp, depth, 0, bsdf)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("renderer", ["SimplePathTracer", "AccPathTracer"])
+def test_renderer_megakernel_checkpointed(megakernel_on_cpu, resource_dir,
+                                          tmp_path, renderer):
+    """The checkpointed megakernel branches (a pass per launch, the film
+    snapshotted between them) finish with a finite image and a snapshot."""
+    from nrenderer_tpu.renderers.acc_pt import AccPathTracerRenderer
+    from nrenderer_tpu.renderers.simple_pt import SimplePathTracerRenderer
+    s = load_scn(str(resource_dir / "path_tracing_cornel.scn"))
+    ro = s.render_option
+    ro.width, ro.height, ro.samples_per_pixel, ro.depth = 8, 8, 8, 2
+    ck = tmp_path / "ck.npz"
+    cls = (SimplePathTracerRenderer if renderer == "SimplePathTracer"
+           else AccPathTracerRenderer)
+    img = np.asarray(cls(seed=1, checkpoint_path=str(ck)).render(s).pixels)
+    assert img.shape == (8, 8, 4) and np.isfinite(img).all()
+    assert img[..., :3].max() > 0.0
+    assert ck.exists()

@@ -1,6 +1,6 @@
 """.scn parser tests against the stock reference scenes.
 
-Expected values transcribed from reading `/root/reference/resource/*.scn` and
+Expected values are those of the stock scenes in `resources/` and
 the reference parser's semantics (`ScnImporter.cpp:440-535`)."""
 import numpy as np
 import pytest

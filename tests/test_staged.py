@@ -45,26 +45,6 @@ def test_staged_matches_plain_wavefront(resource_dir, monkeypatch):
     assert np.abs(staged - plain).mean() < 0.06
 
 
-def test_staged_stream_pack_matches_shift(resource_dir, monkeypatch):
-    """NR_WAVE_PACK=stream (Pallas streaming compactor RR packs + film
-    banking by expansion chain instead of pix scatter-add) is the same
-    estimator as the shift engine: different slot layout re-seeds the
-    per-lane RNG, so agreement is statistical, not bitwise.  The closed
-    Cornell box at depth 13 keeps alive counts ABOVE the 1/2 and 1/4
-    stage caps, so the stream path's row-claim RR overflow guard (not
-    just the happy path) is exercised."""
-    monkeypatch.setenv("NR_STAGED", "1")
-    monkeypatch.setenv("NR_STREAM_ROWS", "64")
-    monkeypatch.setenv("NR_WAVE_PACK", "shift")
-    shift = render(resource_dir)
-    monkeypatch.setenv("NR_WAVE_PACK", "stream")
-    stream = render(resource_dir)
-    assert np.isfinite(stream).all()
-    assert (stream >= 0).all()
-    assert abs(stream.mean() - shift.mean()) < 0.02
-    assert np.abs(stream - shift).mean() < 0.06
-
-
 def test_staged_stage_plan_boundaries():
     from nrenderer_tpu.renderers._wavefront import stage_plan
     # absolute bounce boundaries, clipped to depth

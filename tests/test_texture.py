@@ -217,8 +217,8 @@ def test_specular_map_unrolled_path(tmp_path):
 
 @pytest.mark.slow
 def test_specular_map_mesh_grid(tmp_path):
-    """VERDICT r3 #9 'textured-grid test with a specular map': the 128-face
-    grid takes the blocked mesh sweep (>BVH_THRESHOLD) and map_Ks still
+    """A textured grid with a specular map: the 128-face grid takes the
+    BVH mesh walk (>BVH_THRESHOLD) and map_Ks still
     reaches the conductor lobe (spec-tex id rides the material channels,
     UVs the per-face tables)."""
     from nrenderer_tpu.renderers.acc_pt import AccPathTracerRenderer
@@ -233,7 +233,7 @@ def test_specular_map_mesh_grid(tmp_path):
 
 @pytest.mark.slow
 def test_textured_mesh_bvh_path(tmp_path):
-    """Textures survive the BlockedTris mesh sweep (>BVH_THRESHOLD tris):
+    """Textures survive the BVH mesh walk (>BVH_THRESHOLD tris):
     an 8x8-subdivided quad (128 faces) renders left-red / right-green
     through AccPathTracer's BVH path."""
     from nrenderer_tpu.renderers.acc_pt import AccPathTracerRenderer

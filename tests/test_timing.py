@@ -2,6 +2,7 @@
 import time
 
 from nrenderer_tpu.utils.timing import PhaseTimer
+from nrenderer_tpu.resources import RESOURCE_DIR
 
 
 def test_phase_accumulation():
@@ -49,13 +50,13 @@ def test_renderers_log_phases():
     from nrenderer_tpu.renderers.raycast import RayCastRenderer
     from nrenderer_tpu.renderers.simple_pt import SimplePathTracerRenderer
 
-    scene = load_scn("/root/reference/resource/ray_cast_cornel.scn")
+    scene = load_scn(str(RESOURCE_DIR / "ray_cast_cornel.scn"))
     scene.render_option.width = scene.render_option.height = 16
     get_server().logger.clear()
     RayCastRenderer().render(scene)
     assert any("phases:" in m.content for m in get_server().logger.get())
 
-    scene = load_scn("/root/reference/resource/path_tracing_cornel.scn")
+    scene = load_scn(str(RESOURCE_DIR / "path_tracing_cornel.scn"))
     ro = scene.render_option
     ro.width = ro.height = 16
     ro.samples_per_pixel = 4

@@ -1,4 +1,4 @@
-"""Live-viewer tests (VERDICT r3 #8): the headless ScreenView analogue.
+"""Live-viewer tests: the headless ScreenView analogue.
 
 The viewer consumes `Screen.is_updated` exactly like the reference UI loop
 (`ScreenView.cpp:168-178`) and serves the latest frame over HTTP."""
